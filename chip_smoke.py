@@ -11,16 +11,25 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
   2. field self-test: the fq_mont_mul kernel against the plain mont_mul on
      2^20 seeded random elements (torch.equal);
   3. each kernel against its plain version on the card (torch.equal), on
-     the real stage data of both paths phase 4 drives: the 64 x 128 gossip
-     batch and the 512-key sync aggregate, with its time (CUDA events), the
-     plain version's time and its bound;
-  4. the paths through the public API, set_backend("torch"): 64 aggregate
-     attestations x 128 pubkeys from bench_fixtures.npz must verify (three
-     times; the median gives sets/s), the same batch with one message byte
-     flipped must not, and the 512-key Altair sync aggregate must. Every
-     launch count is set to 0 just before each path (the first valid
-     verify, the tampered batch, the sync aggregate) and read just after;
-     each must be > 0. Then per-stage times of the gossip batch.
+     the real stage data of the 64 x 128 gossip batch, the 512-key sync
+     aggregate and the one-key urgent verify, with its time (CUDA events),
+     the plain version's time and its bound; then hash_to_g2 on a batch of
+     edge lanes (u = 0, the EF vectors' messages, seeded random u-values
+     with is_qr true and false);
+  4. the paths through the public API, set_backend("torch"), each driven
+     with every launch count set to 0 just before it and read just after,
+     and failed unless each kernel of its list launched in it:
+     gossip (64 aggregate attestations x 128 pubkeys from bench_fixtures.npz,
+     three verifies; the median gives sets/s), tampered (one message byte
+     flipped: must not verify), sync (the 512-key Altair sync aggregate),
+     async (8 submissions of the gossip batch through
+     bls.verify_signature_sets_async at depth 4, the 5th tampered: verdicts
+     in FIFO order), urgent (bls.verify of one fixture key while four
+     batches fill the window), aggregate_verify (the 64 sets as one
+     distinct-message AggregateVerify; a flipped message byte must fail);
+  5. the 15 EF BLS vectors through the port's API;
+  6. per-stage times of the gossip batch, and hash-to-G2 of one message
+     against the pure-Python RFC 9380 map.
 The last two lines are the kernel table and the device line.
 """
 
@@ -37,6 +46,13 @@ FIXTURES = os.path.join(ROOT, "bench_fixtures.npz")
 N_SETS, N_PKS = 64, 128          # gossip batch cap x target committee size
 FIELD_N = 1 << 20
 VERIFY_REPEATS = 3                # verifies of the valid batch; the median is reported
+PIPELINED = 8                     # submissions of the pipelined phase
+EF_BLS = os.path.join(ROOT, "tests", "ef", "vectors", "general", "phase0", "bls")
+# kernels each driven path must launch
+MAIN_PATH = ("stage_prepare", "hash_to_g2", "stage_pairs", "miller_loop_product",
+             "final_exp_easy_part", "final_exp_hard_part")
+AGGREGATE_PATH = ("hash_to_g2", "miller_loop_product", "final_exp_easy_part",
+                  "final_exp_hard_part")
 
 # H100 SXM peaks (NVIDIA data sheet): HBM 3.35 TB/s. Integer multiply-add:
 # 64 32-bit IMAD per clock per SM (CUDA C++ Programming Guide, throughput
@@ -173,6 +189,36 @@ def fq_products_hard_part() -> int:
     return 5 * exp + 8 * 54 + 2 * 6 * 3
 
 
+def fq_products_h2c(n: int) -> int:
+    """h2c.cu per message: per u-value the Montgomery conversion (2), SWU
+    before sqrt_ratio (29), sqrt_ratio (91 + the a^E window chain: a
+    14-product table, 4 squarings per later digit, a product per nonzero
+    one), after it (12), two sgn0 (4) and the isogeny (84); then the add
+    (44) and the cofactor clearing (two |x| multiplications of 64
+    doublings and 5 adds past the first, three psi maps, a doubling, five
+    adds)."""
+    from lighthouse_tpu_torch.crypto.bls381.constants import X_ABS
+    from lighthouse_tpu_torch.crypto.torchbls import h2c_ops as h2
+    from lighthouse_tpu_torch.crypto.torchbls import limbs as lb
+
+    digits = lb.window_digits(h2._E, 4)
+    pow_e = 14 * 3 + (len(digits) - 1) * 4 * 2 + sum(1 for d in digits[1:] if d) * 3
+    per_u = 2 + 29 + 91 + pow_e + 12 + 4 + 84
+    xmul = X_ABS.bit_length() * 16 + (_popcount(X_ABS) - 1) * 44
+    clear = 2 * xmul + 3 * 6 + 16 + 5 * 44
+    return n * (2 * per_u + 44 + clear)
+
+
+def fq_products_easy_part() -> int:
+    """easy_part.cu: the Fq12 inversion (four Fq6 products; the Fq6
+    adjugate's three Fq2 squares and nine Fq2 products; one Fq2 inversion),
+    two Fq12 products and a Frobenius (six Fq2 products)."""
+    from lighthouse_tpu_torch.crypto.bls381.constants import P
+
+    fq2_inv = 4 + 381 + _popcount(P - 2)
+    return 4 * 18 + (3 * 2 + 9 * 3) + fq2_inv + 2 * 54 + 6 * 3
+
+
 def bound_ms(fq_products: int, bytes_moved: int) -> tuple[float, str]:
     ops_ms = fq_products * IMAD_PER_FQ_MUL / IMAD_PER_S * 1e3
     bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
@@ -204,6 +250,7 @@ def main() -> int:
     if not os.path.exists(FIXTURES) or not os.path.isdir(os.path.join(ROOT, "lighthouse_tpu_torch")):
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 2
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -211,12 +258,12 @@ def main() -> int:
         return 2
     from lighthouse_tpu_torch.crypto import bls
     from lighthouse_tpu_torch.crypto.bls381 import hash_to_curve as ph2c
-    from lighthouse_tpu_torch.crypto.bls381.constants import DST_POP
+    from lighthouse_tpu_torch.crypto.bls381.constants import DST_POP, P
     from lighthouse_tpu_torch.crypto.torchbls import backend as be
     from lighthouse_tpu_torch.crypto.torchbls import curve_ops as co
     from lighthouse_tpu_torch.crypto.torchbls import kernels as K
     from lighthouse_tpu_torch.crypto.torchbls import limbs as lb
-    from lighthouse_tpu_torch.crypto.torchbls import pairing_ops as po
+    from lighthouse_tpu_torch.crypto.torchbls import tower as tw
     from lighthouse_tpu_torch.utils import fixtures
 
     dev = torch.device("cuda")
@@ -260,28 +307,34 @@ def main() -> int:
         r = random.Random(rand_seed)
         return [1] + [r.getrandbits(64) | 1 for _ in range(n - 1)]
 
+    # the urgent path's one fixture key, message and signature
+    z = np.load(FIXTURES)
+    single = fixtures.signature_set(z["small_keys"][0], z["small_sigs"][0], z["small_msgs"][0])
     emit({"phase": "fixtures", "sets": len(att), "pks": N_PKS, "sync_pks": len(sync[0].signing_keys),
           "seconds": time.perf_counter() - t0})
 
-    # 3. each kernel against its plain version on the stage data of both
-    # paths phase 4 drives: the gossip batch (64, 128) and the sync
-    # aggregate (4, 512)
+    # 3. each kernel against its plain version on the stage data of each
+    # driven bucket: the gossip batch (64, 128), the sync aggregate (4, 512)
+    # and the urgent verify (4, 1); AggregateVerify's kernels run at the
+    # gossip shapes (64 messages, 65 pairs)
     backend = be.TorchBackend(device="cuda")
 
     def check_kernels(path: str, sets) -> dict:
         prepare_in, us = backend.marshal(sets, rands(len(sets)))
         n, m = prepare_in[0].shape[:2]
         z_pk, sig_acc, _bad = K.stage_prepare(*prepare_in)
-        h_jac = be.stage_h2c(us)
+        h_jac = K.hash_to_g2(us)
         pairs = K.stage_pairs(z_pk, h_jac, sig_acc, prepare_in[-1])
         f = K.miller_loop_product(pairs[:2], pairs[2:4], pairs[4])
-        t_easy = po.final_exp_easy_part(f)
-        cases = {   # the main path calls fq_mont_mul with no b: the product by R^2
+        t_easy = K.final_exp_easy_part(f)
+        cases = {   # fq_mont_mul by R^2 on the u-values: the field phase's kernel at h2c's shape
             "fq_mont_mul": ((us,), us.numel() // lb.NL, 20),
             "stage_prepare": (tuple(prepare_in), fq_products_prepare(*[prepare_in[i] for i in (2, 5, 6)]), 3),
+            "hash_to_g2": ((us,), fq_products_h2c(n), 3),
             "stage_pairs": ((z_pk, h_jac, sig_acc, prepare_in[-1]), fq_products_pairs(n), 5),
             "miller_loop_product": ((pairs[:2], pairs[2:4], pairs[4]),
                                     fq_products_miller(pairs[0].shape[0]), 3),
+            "final_exp_easy_part": ((f,), fq_products_easy_part(), 5),
             "final_exp_hard_part": ((t_easy,), fq_products_hard_part(), 3),
         }
         rows = {}
@@ -303,27 +356,72 @@ def main() -> int:
                 raise SystemExit(f"{name}: kernel disagrees with its plain version on the {path} path")
         return rows
 
-    checks = {"gossip": check_kernels("gossip", att), "sync": check_kernels("sync", sync)}
+    checks = {"gossip": check_kernels("gossip", att), "sync": check_kernels("sync", sync),
+              "urgent": check_kernels("urgent", [single])}
+
+    # hash_to_g2 on edge lanes: u = 0 (the xd == 0 case), the EF vectors'
+    # messages, and seeded random u-values, among them is_qr true and false
+    import random
+
+    from lighthouse_tpu_torch.crypto.bls381 import fields as pyf
+    from lighthouse_tpu_torch.testing import ef_bls
+
+    def is_qr(u) -> bool:
+        """sqrt_ratio's is_qr for u: whether gx1 of the SWU map is square."""
+        Z, A, B = ph2c.ISO_Z, ph2c.ISO_A, ph2c.ISO_B
+        tv1 = pyf.fq2_mul(Z, pyf.fq2_sqr(u))
+        tv2 = pyf.fq2_add(pyf.fq2_sqr(tv1), tv1)
+        xd = pyf.fq2_mul(pyf.fq2_neg(A), tv2)
+        if pyf.fq2_is_zero(xd):
+            xd = pyf.fq2_mul(Z, A)
+        x1 = pyf.fq2_mul(pyf.fq2_mul(B, pyf.fq2_add(tv2, pyf.FQ2_ONE)), pyf.fq2_inv(xd))
+        gx1 = pyf.fq2_add(pyf.fq2_mul(pyf.fq2_add(pyf.fq2_sqr(x1), A), x1), B)
+        return pyf.fq2_legendre_is_square(gx1)
+
+    ef_msgs = sorted({bytes.fromhex(d["input"]["message"][2:])
+                      for _h, _c, p in ef_bls.vector_cases(EF_BLS)
+                      for d in [ef_bls.read_data_yaml(p.read_text())]
+                      if isinstance(d["input"], dict) and "message" in d["input"]})
+    r = random.Random(20261017)
+    lanes = [((0, 0), (0, 0))] + [tuple(ph2c.hash_to_field_fq2(msg, 2, DST_POP)) for msg in ef_msgs]
+    lanes += [tuple((r.randrange(P), r.randrange(P)) for _ in range(2)) for _ in range(11)]
+    qr = [is_qr(u) for lane in lanes for u in lane]
+    us_edge = torch.as_tensor(np.stack([
+        np.stack([np.stack([lb.pack(u[0]), lb.pack(u[1])]) for u in lane]) for lane in lanes
+    ]).astype(np.int64), device=dev)
+    kout = K.hash_to_g2(us_edge)
+    edge_equal, edge_err = compare(kout, K.hash_to_g2_plain(us_edge))
+    x, y, inf = co.jac_to_affine(tuple(c[1:1 + len(ef_msgs)] for c in kout), co.FQ2_OPS)
+    xs, ys = lb.from_mont(x).cpu().numpy(), lb.from_mont(y).cpu().numpy()
+    ef_python = all(
+        ((lb.unpack(xs[i, 0]), lb.unpack(xs[i, 1])), (lb.unpack(ys[i, 0]), lb.unpack(ys[i, 1])))
+        == ph2c.hash_to_g2(msg, DST_POP) for i, msg in enumerate(ef_msgs)) and not bool(inf.any())
+    emit({"phase": "h2c_edge", "lanes": len(lanes), "ef_messages": len(ef_msgs),
+          "u_zero_lanes": 1, "is_qr_true": sum(qr), "is_qr_false": len(qr) - sum(qr),
+          "equal": edge_equal, "max_abs_err": edge_err, "ef_match_python": ef_python})
+    if not (edge_equal and ef_python and 0 < sum(qr) < len(qr)):
+        raise SystemExit("hash_to_g2 fails on the edge lanes")
 
     # 4. the paths through the public API: each is driven with every launch
     # count set to 0 just before it and read just after, and fails unless
-    # every kernel launched in it
+    # every kernel of its list launched in it
     bls.set_backend("torch")
+    launches = {}
 
-    def drive(path: str, sets):
-        torch.cuda.synchronize()
+    def drive(path: str, required, fn, settle: bool = True):
+        if settle:                           # start on an idle card
+            torch.cuda.synchronize()
         K.reset_launches()
         t = time.perf_counter()
-        verdict = bls.verify_signature_sets(sets, rands)
+        out = fn()
         seconds = time.perf_counter() - t
-        counts = {name: K.KERNELS[name][0].launches for name in K.KERNELS}
-        missing = [k for k, v in counts.items() if v <= 0]
+        launches[path] = {name: K.KERNELS[name][0].launches for name in K.KERNELS}
+        missing = [k for k in required if launches[path][k] <= 0]
         if missing:
             raise SystemExit(f"kernels not launched on the {path} path: {missing}")
-        return verdict, seconds, counts
+        return out, seconds
 
-    launches = {}
-    ok, first_s, launches["gossip"] = drive("gossip", att)
+    ok, first_s = drive("gossip", MAIN_PATH, lambda: bls.verify_signature_sets(att, rands))
     if ok is not True:
         raise SystemExit("the 64 x 128 fixture batch did not verify")
     samples = [first_s]                      # the first one marshals the pubkey grid
@@ -341,20 +439,95 @@ def main() -> int:
     s0 = att[0]
     msg = bytes([s0.message[0] ^ 1]) + s0.message[1:]
     tampered = [bls.SignatureSet(s0.signature, s0.signing_keys, msg)] + att[1:]
-    bad_ok, bad_s, launches["tampered"] = drive("tampered", tampered)
+    bad_ok, bad_s = drive("tampered", MAIN_PATH, lambda: bls.verify_signature_sets(tampered, rands))
     emit({"phase": "tampered", "verified": bad_ok, "seconds": bad_s, "launches": launches["tampered"]})
     if bad_ok is not False:
         raise SystemExit("the tampered batch verified")
 
-    sync_ok, sync_s, launches["sync"] = drive("sync", sync)
+    sync_ok, sync_s = drive("sync", MAIN_PATH, lambda: bls.verify_signature_sets(sync, rands))
     emit({"phase": "sync", "bucket": list(be.padding_bucket(1, len(sync[0].signing_keys))),
           "verified": sync_ok, "seconds": sync_s, "sets_per_s": 1 / sync_s,
           "launches": launches["sync"]})
     if sync_ok is not True:
         raise SystemExit("the sync aggregate did not verify")
 
+    # pipelined: PIPELINED submissions through the dispatcher's window, the
+    # 5th tampered; resolving the last ticket first must drain them all in
+    # submission order
+    dispatcher = bls.get_backend().dispatcher
+    batches = [tampered if i == 4 else att for i in range(PIPELINED)]
+    expected = [i != 4 for i in range(PIPELINED)]
+    submit_s = []
+
+    def pipelined():
+        tickets = []
+        for batch in batches:
+            t = time.perf_counter()
+            tickets.append(bls.verify_signature_sets_async(batch, rands))
+            submit_s.append(time.perf_counter() - t)
+        tickets[-1].result()
+        drained = all(t.done for t in tickets)
+        return [t.result() for t in tickets], drained
+
+    (verdicts, drained), wall_s = drive("async", MAIN_PATH, pipelined)
+    emit({"phase": "pipelined", "bucket": [n, m], "depth": dispatcher.depth,
+          "submissions": PIPELINED, "verdicts": verdicts, "fifo_drained": drained,
+          "wall_seconds": wall_s, "submit_host_seconds": sum(submit_s),
+          "submit_seconds": submit_s, "sets_per_s": PIPELINED * len(att) / wall_s,
+          "sync_sets_per_s": len(att) / median_s, "launches": launches["async"]})
+    if verdicts != expected or not drained:
+        raise SystemExit(f"pipelined verdicts {verdicts}, want {expected} in FIFO order")
+
+    # urgent: one fixture key, message and signature through bls.verify
+    # while the batch window is full (its batches still on the card, which
+    # has one stream for both lanes), then once more on an idle card
+    def verify_single():
+        return bls.verify(single.signing_keys[0], single.message, single.signature)
+
+    window = [bls.verify_signature_sets_async(att, rands) for _ in range(dispatcher.depth)]
+    inflight = dispatcher.inflight()
+    urgent_ok, urgent_s = drive("urgent", MAIN_PATH, verify_single, settle=False)
+    window_ok = [t.result() for t in window]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    idle_ok = verify_single()
+    idle_s = time.perf_counter() - t0
+    emit({"phase": "urgent", "verified": urgent_ok, "latency_seconds": urgent_s,
+          "batches_in_flight": inflight, "window_verdicts": window_ok,
+          "idle_latency_seconds": idle_s, "launches": launches["urgent"]})
+    if not (urgent_ok is True and idle_ok is True and inflight == dispatcher.depth
+            and all(window_ok)):
+        raise SystemExit("the urgent verify failed")
+
+    # aggregate_verify: the 64 sets as one distinct-message AggregateVerify
+    from lighthouse_tpu_torch.crypto.bls381 import curve as pc
+
+    agg_pks = []
+    for s in att:
+        acc = None
+        for pk in s.signing_keys:
+            acc = pc.g1_add(acc, pk.point)
+        agg_pks.append(bls.PublicKey(acc))
+    agg_sig = bls.AggregateSignature.aggregate([s.signature for s in att])
+    msgs = [s.message for s in att]
+    av_ok, av_s = drive("aggregate_verify", AGGREGATE_PATH,
+                        lambda: bls.aggregate_verify(agg_pks, msgs, agg_sig))
+    av_bad = bls.aggregate_verify(agg_pks, [msg] + msgs[1:], agg_sig)
+    emit({"phase": "aggregate_verify", "pairs": len(att) + 1, "verified": av_ok,
+          "seconds": av_s, "tampered_verified": av_bad, "launches": launches["aggregate_verify"]})
+    if av_ok is not True or av_bad is not False:
+        raise SystemExit("AggregateVerify gave a wrong verdict")
+
+    # 5. the EF BLS vectors through the port's API on the card
+    t0 = time.perf_counter()
+    ef = {f"{h}/{c}": ef_bls.run_vector(p) for h, c, p in ef_bls.vector_cases(EF_BLS)}
+    emit({"phase": "ef_bls", "cases": len(ef), "passed": sum(ef.values()),
+          "failed": [k for k, v in ef.items() if not v], "seconds": time.perf_counter() - t0})
+    if len(ef) != 15 or not all(ef.values()):
+        raise SystemExit("EF BLS vectors failed")
+
     # the kernel line: the gossip path's numbers, then each path's launches
-    # and the sync bucket's check
+    # and the sync and urgent buckets' checks
     table = {}
     for name, (_w, _p, source, replaces) in K.KERNELS.items():
         g = checks["gossip"][name]
@@ -366,10 +539,10 @@ def main() -> int:
             "bound_ms": g["bound_ms"], "bound_by": g["bound_by"], "library_ms": None,
             "equal": g["equal"], "fq_products": g["fq_products"],
             "launches_by_path": {path: launches[path][name] for path in launches},
-            "sync": checks["sync"][name],
+            "sync": checks["sync"][name], "urgent": checks["urgent"][name],
         }
 
-    # per-stage times of one more valid batch, synchronised after each stage
+    # 6. per-stage times of one more valid batch, synchronised after each stage
     stage_ms = {}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -385,9 +558,12 @@ def main() -> int:
         return out
 
     z_pk, sig_acc, bad = timed("prepare", be.stage_prepare, *prepare_in)
-    h_jac = timed("h2c_plain", be.stage_h2c, us)
+    h_jac = timed("h2c", be.stage_h2c, us)
     pairs = timed("pairs", be.stage_pairs, z_pk, h_jac, sig_acc, prepare_in[-1])
-    okt = timed("pairing", be.stage_pairing, *pairs)
+    f = timed("miller", K.miller_loop_product, pairs[:2], pairs[2:4], pairs[4])
+    f = timed("easy_part", K.final_exp_easy_part, f)
+    f = timed("hard_part", K.final_exp_hard_part, f)
+    okt = timed("check", tw.fq12_eq_one, f)
     emit({"phase": "stages", "bucket": [n, m], "ms": stage_ms,
           "sets_per_s": len(att) / (sum(stage_ms.values()) / 1e3),
           "verified": bool(okt) and not bool(bad)})

@@ -16,9 +16,11 @@ from .api import (
     available_backends,
     sign,
     verify,
+    aggregate_verify,
     fast_aggregate_verify,
     eth_fast_aggregate_verify,
     verify_signature_sets,
+    verify_signature_sets_async,
 )
 
 __all__ = [
@@ -36,7 +38,9 @@ __all__ = [
     "available_backends",
     "sign",
     "verify",
+    "aggregate_verify",
     "fast_aggregate_verify",
     "eth_fast_aggregate_verify",
     "verify_signature_sets",
+    "verify_signature_sets_async",
 ]

@@ -44,7 +44,13 @@ class FakeBackend:
     def verify_signature_sets(self, sets, rands) -> bool:
         return all(len(s.signing_keys) > 0 for s in sets)
 
+    def verify_signature_sets_async(self, sets, rands):
+        return _ReadyHandle(self.verify_signature_sets(sets, rands))
+
     def verify_single(self, pk, message, sig) -> bool:
+        return True
+
+    def aggregate_verify(self, pks, messages, sig) -> bool:
         return True
 
     def sign(self, sk: SecretKey, message: bytes) -> Signature:
@@ -101,6 +107,15 @@ def verify(pk: PublicKey, message: bytes, signature: Signature) -> bool:
     return get_backend().verify_single(pk, message, signature)
 
 
+def aggregate_verify(pks: Sequence[PublicKey], messages: Sequence[bytes], signature: Signature) -> bool:
+    """Distinct-message aggregate verification (IETF AggregateVerify)."""
+    if len(pks) != len(messages) or not pks:
+        return False
+    if signature.is_infinity():
+        return False
+    return get_backend().aggregate_verify(pks, messages, signature)
+
+
 def fast_aggregate_verify(pks: Sequence[PublicKey], message: bytes, signature: Signature) -> bool:
     """Same-message aggregate verification (IETF FastAggregateVerify)."""
     if not pks:
@@ -130,9 +145,40 @@ def verify_signature_sets(
         return False
     if any(s.signature.is_infinity() for s in sets):
         return False
+    return get_backend().verify_signature_sets(sets, _coefficients(sets, rand_fn))
+
+
+def _coefficients(sets, rand_fn) -> list[int]:
     rands = (rand_fn or _default_rands)(len(sets))
     if len(rands) != len(sets):
         raise ValueError("rand_fn returned wrong number of coefficients")
     if any(z % R == 0 for z in rands):
         raise ValueError("batch verification coefficients must be nonzero")
-    return get_backend().verify_signature_sets(sets, rands)
+    return rands
+
+
+class _ReadyHandle:
+    """A handle that is already resolved: a batch that fails before any
+    backend sees it, or the fake backend's verdict."""
+
+    __slots__ = ("_value",)
+
+    def __init__(self, value: bool):
+        self._value = value
+
+    def result(self) -> bool:
+        return self._value
+
+
+def verify_signature_sets_async(
+    sets: Sequence[SignatureSet],
+    rand_fn: Callable[[int], Sequence[int]] | None = None,
+):
+    """Submit a batch for verification; returns a handle whose .result()
+    blocks for the verdict. On the torch backend the batch rides the
+    pipelined dispatcher, so the card works on it while the caller marshals
+    the next batch."""
+    sets = list(sets)
+    if not sets or any(s.signature.is_infinity() for s in sets):
+        return _ReadyHandle(False)
+    return get_backend().verify_signature_sets_async(sets, _coefficients(sets, rand_fn))

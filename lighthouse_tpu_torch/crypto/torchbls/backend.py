@@ -8,16 +8,27 @@ for 64-bit random coefficients z_i, in four stages on one device:
 
     1. prepare  (kernels.stage_prepare, csrc/prepare.cu): Montgomery
        conversion, per-set pubkey tree sums, z-scaling, signature tree sum
-    2. h2c      (h2c_ops.hash_to_g2_jacobian, plain torch in this slice)
+    2. h2c      (kernels.hash_to_g2, csrc/h2c.cu)
     3. pairs    (kernels.stage_pairs, csrc/pairs.cu): batched affine
        conversion and the n + 1 pairs with their mask
-    4. pairing  (pairing_ops.pairing_product_is_one: csrc/miller.cu, the
-       easy part in plain torch, csrc/hard_part.cu)
+    4. pairing  (pairing_ops.pairing_product_is_one: csrc/miller.cu,
+       csrc/easy_part.cu, csrc/hard_part.cu)
 
 The verdict is `ok and not bad` (bad: some set's aggregate pubkey is the
 identity). Shapes are padded to power-of-two (n, m) buckets with masked
-lanes. The backend is synchronous; on CPU tensors (device="cpu") every
-stage runs its plain PyTorch version.
+lanes.
+
+Every batch goes through a pipelined dispatcher (pipeline.py), as the JAX
+backend's does: `verify_signature_sets_async` marshals on the caller's
+thread (host hashing and packing, pinned host buffers copied without
+blocking), then the dispatcher enqueues the four stages and a copy of the
+verdict to pinned host memory behind a CUDA event, with no host
+synchronisation in between; `VerifyHandle.result()` waits on that event.
+Both lanes, batch and urgent, share the device's one stream.
+`verify_signature_sets` is `verify_signature_sets_async(...).result()`.
+`aggregate_verify` (distinct messages) runs h2c, the pair assembly
+`aggregate_pairs` and the pairing stage. On CPU tensors (device="cpu")
+every stage runs its plain PyTorch version, synchronously.
 """
 
 from __future__ import annotations
@@ -33,6 +44,7 @@ from . import h2c_ops as h2
 from . import kernels
 from . import limbs as lb
 from . import pairing_ops as po
+from . import pipeline
 
 MIN_SETS = 4          # smallest set bucket
 MIN_PKS = 1
@@ -60,12 +72,56 @@ def pack_ints_vec(xs) -> np.ndarray:
 
 # The four stages, in order. Each takes and returns tensors on one device.
 stage_prepare = kernels.stage_prepare
-stage_h2c = h2.hash_to_g2_jacobian
+stage_h2c = kernels.hash_to_g2
 stage_pairs = kernels.stage_pairs
 
 
 def stage_pairing(px, py, qxx, qyy, pair_mask):
     return po.pairing_product_is_one((px, py), (qxx, qyy), pair_mask)
+
+
+def aggregate_pairs(pk_x, pk_y, mask, sig_xy, h_jac):
+    """Pair assembly of distinct-message AggregateVerify (the JAX backend's
+    _aggregate_kernel), plain torch: standard-form pubkeys pk_x, pk_y (n, NL)
+    with their mask (n,), the standard-form signature sig_xy (2, 2, NL) and
+    the hashed messages h_jac -> (px, py, qxx, qyy, pair_mask) of the n + 1
+    pairs (pk_i, H(m_i)) and (-g1, sig)."""
+    pk_x, pk_y, sig_xy = lb.to_mont(pk_x), lb.to_mont(pk_y), lb.to_mont(sig_xy)
+    qx, qy, qinf = co.jac_to_affine(h_jac, co.FQ2_OPS)
+    px = torch.cat([pk_x, lb.const(kernels._NEG_G1[0], pk_x)[None]])
+    py = torch.cat([pk_y, lb.const(kernels._NEG_G1[1], pk_y)[None]])
+    qxx = torch.cat([qx, sig_xy[None, 0]])
+    qyy = torch.cat([qy, sig_xy[None, 1]])
+    pair_mask = torch.cat([(mask != 0) & ~qinf, torch.ones((1,), dtype=torch.bool, device=qinf.device)])
+    return px, py, qxx, qyy, pair_mask
+
+
+class VerifyHandle:
+    """An in-flight verification that resolves to a bool on `result()`.
+
+    On the card the verdict (ok and not bad) is copied into pinned host
+    memory behind a CUDA event, all enqueued without waiting; `result()`
+    waits on that event only, so it never waits for batches enqueued after
+    this one. `VerifyHandle()` is a batch that failed on the host."""
+
+    __slots__ = ("_verdict", "_event")
+
+    def __init__(self, verdict=None):
+        self._event = None
+        if verdict is not None and verdict.device.type == "cuda":
+            host = torch.empty((), dtype=torch.bool, pin_memory=True)
+            host.copy_(verdict, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+            verdict = host
+        self._verdict = verdict
+
+    def result(self) -> bool:
+        if self._verdict is None:
+            return False
+        if self._event is not None:
+            self._event.synchronize()
+        return bool(self._verdict)
 
 
 class TorchBackend:
@@ -76,6 +132,7 @@ class TorchBackend:
     def __init__(self, dst: bytes = DST_POP, device=None):
         self.dst = dst
         self.device = torchcfg.resolve_device(device)
+        self.dispatcher = pipeline.PipelinedDispatcher()
         # pubkey grids on the device, keyed by the identity of the key
         # objects and the set grouping (a validator registry re-verifies
         # the same PublicKey objects every slot)
@@ -83,7 +140,12 @@ class TorchBackend:
         self._pk_cache_order: list = []
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
-        return torch.as_tensor(a.astype(np.int64), device=self.device)
+        """Host array -> int64 tensor on the device; to the card through a
+        pinned buffer and a copy that does not wait for the stream."""
+        t = torch.from_numpy(a.astype(np.int64))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
 
     def _marshal_pubkeys(self, sets, n: int, m: int):
         fp = (
@@ -142,18 +204,59 @@ class TorchBackend:
         pairs = stage_pairs(z_pk, h_jac, sig_acc, prepare_in[-1])
         return stage_pairing(*pairs), bad
 
-    def verify_signature_sets(self, sets, rands) -> bool:
+    def verify_signature_sets_async(self, sets, rands, urgent: bool = False):
+        """Marshal one batch here, on the caller's thread, then submit its
+        four stages through the dispatcher: the batch lane waits for a
+        window slot first, the urgent lane never does. Returns a ticket
+        whose result() is the verdict."""
         if not sets or any(s.signature.point is None for s in sets):
-            return False
-        ok, bad = self.run(*self.marshal(sets, rands))
-        return bool(ok) and not bool(bad)
+            return VerifyHandle()
+        prepare_in, us = self.marshal(sets, rands)
+
+        def dispatch():
+            ok, bad = self.run(prepare_in, us)
+            return VerifyHandle(ok & ~bad)
+
+        return self.dispatcher.submit(dispatch, urgent=urgent)
+
+    def verify_signature_sets(self, sets, rands) -> bool:
+        return self.verify_signature_sets_async(sets, rands).result()
+
+    # the urgent lane: small verifies that must not wait behind the window
+    def verify_signature_sets_urgent_async(self, sets, rands):
+        return self.verify_signature_sets_async(sets, rands, urgent=True)
+
+    def verify_signature_sets_urgent(self, sets, rands) -> bool:
+        return self.verify_signature_sets_urgent_async(sets, rands).result()
 
     def verify_single(self, pk, message: bytes, sig) -> bool:
         if sig.is_infinity():
             return False
         from ..bls import SignatureSet
 
-        return self.verify_signature_sets([SignatureSet(sig, (pk,), message)], [1])
+        return self.verify_signature_sets_urgent([SignatureSet(sig, (pk,), message)], [1])
+
+    def aggregate_verify(self, pks, messages, sig) -> bool:
+        """Distinct-message AggregateVerify,
+        prod_i e(pk_i, H(m_i)) * e(-g1, sig) == 1: no random coefficients,
+        so no prepare stage; h2c, aggregate_pairs, then the pairing stage."""
+        if len(pks) == 0 or sig.point is None:
+            return False
+        n_real = len(pks)
+        n = max(MIN_SETS, _next_pow2(n_real))
+        pk_x = np.zeros((n, lb.NL), np.uint32)
+        pk_y = np.zeros((n, lb.NL), np.uint32)
+        mask = np.zeros((n,), np.uint32)
+        pk_x[:n_real] = pack_ints_vec([pk.point[0] for pk in pks])
+        pk_y[:n_real] = pack_ints_vec([pk.point[1] for pk in pks])
+        mask[:n_real] = 1
+        (sx0, sx1), (sy0, sy1) = sig.point
+        sig_xy = pack_ints_vec([sx0, sx1, sy0, sy1]).reshape(2, 2, lb.NL)
+        us = np.zeros((n, 2, 2, lb.NL), np.uint32)
+        us[:n_real] = h2.hash_to_field_batch(list(messages), self.dst)
+        h_jac = stage_h2c(self._tensor(us))
+        pairs = aggregate_pairs(*(self._tensor(a) for a in (pk_x, pk_y, mask, sig_xy)), h_jac)
+        return bool(stage_pairing(*pairs))
 
     def pairing_inputs(self, live):
         """Host affine pairs, none of them the identity -> the pairing

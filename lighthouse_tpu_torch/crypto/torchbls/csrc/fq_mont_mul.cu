@@ -5,7 +5,8 @@
 // lane): the first thing chip_smoke.py checks on the card, against the
 // plain limbs.mont_mul. With b == NULL the second factor is R^2 from
 // __constant__ memory, so the product is the Montgomery conversion of a
-// (limbs.to_mont); h2c uses that form and moves no R^2 tensor. Bound:
+// (limbs.to_mont), the conversion h2c.cu applies to its inputs. No driven
+// path launches this kernel; chip_smoke.py's field phase holds it. Bound:
 // integer multiply-adds (~300 per product), not bytes (one 48-byte element
 // read per operand, one written).
 #include "fq.cuh"

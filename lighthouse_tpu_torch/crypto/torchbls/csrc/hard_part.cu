@@ -5,16 +5,15 @@
 // final_exp_hard_part_fused :323): on an easy-part output t, five
 // |x|-exponentiation chains of Granger-Scott cyclotomic squarings and the
 // Frobenius/conjugate wiring of pallas_ops.py:312-320 (the HHT chain of the
-// cubed pairing). The easy part, with its one Fq12 inversion, stays plain
-// torch, as it stayed XLA in final_exponentiation_fused.
+// cubed pairing). The easy part, with its one Fq12 inversion, runs before
+// it as a kernel of its own (easy_part.cu); final_exponentiation_fused kept
+// it in XLA.
 //
 // Bound on this card: one dependent chain of ~340 cyclotomic squarings and
 // ~40 Fq12 products (~10^4 Fq products), not bytes (576 in, 576 out). The
 // chain is sequential, so the simple design runs it in one thread; sharing
 // each Fq12 product across a warp is later work.
 #include "tower.cuh"
-
-#define X_ABS 0xd201000000010000ull
 
 // a^x for cyclotomic a (x < 0): squarings over the bits of |x| after the
 // leading one, a multiply on each set bit, a final conjugate

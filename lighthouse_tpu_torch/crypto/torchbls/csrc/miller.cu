@@ -142,8 +142,6 @@ static __device__ void lines_product(const line_t *lines, fp12 *tree, int P) {
   }
 }
 
-#define X_ABS 0xd201000000010000ull
-
 __global__ void miller_kernel(const int64_t *xp_in, const int64_t *yp_in, const int64_t *xq_in,
                               const int64_t *yq_in, const int32_t *mask, int P, jac<fp2> *R,
                               line_t *lines, fp12 *tree, int64_t *out) {

@@ -189,6 +189,34 @@ static __device__ __noinline__ void fp6_mul(fp6 &r, const fp6 &a, const fp6 &b) 
   r.c2 = c2;
 }
 
+// 1 / (a0 + a1 v + a2 v^2) by the adjugate: c0 = a0^2 - xi a1 a2,
+// c1 = xi a2^2 - a0 a1, c2 = a1^2 - a0 a2, t = a0 c0 + xi (a1 c2 + a2 c1),
+// result c / t (tower.fq6_inv's formula; an inverse is unique)
+static __device__ __noinline__ void fp6_inv(fp6 &r, const fp6 &a) {
+  fp2 s0, s1, s2, p01, p12, p20, c0, c1, c2, t, x, tinv;
+  fp2_sqr(s0, a.c0);
+  fp2_sqr(s1, a.c1);
+  fp2_sqr(s2, a.c2);
+  fp2_mul(p01, a.c0, a.c1);
+  fp2_mul(p12, a.c1, a.c2);
+  fp2_mul(p20, a.c2, a.c0);
+  fp2_mul_by_xi(x, p12);
+  fp2_sub(c0, s0, x);
+  fp2_mul_by_xi(x, s2);
+  fp2_sub(c1, x, p01);
+  fp2_sub(c2, s1, p20);
+  fp2_mul(t, a.c0, c0);
+  fp2_mul(s0, a.c1, c2);
+  fp2_mul(s1, a.c2, c1);
+  fp2_add(x, s0, s1);
+  fp2_mul_by_xi(x, x);
+  fp2_add(t, t, x);
+  fp2_inv(tinv, t);
+  fp2_mul(r.c0, c0, tinv);
+  fp2_mul(r.c1, c1, tinv);
+  fp2_mul(r.c2, c2, tinv);
+}
+
 // ------------------------------------------------------------------ Fq12
 
 static __device__ __forceinline__ void fp12_load(fp12 &r, const int64_t *src) {
@@ -221,6 +249,19 @@ static __device__ __forceinline__ void fp12_set_one(fp12 &r) {
 static __device__ __forceinline__ void fp12_conj(fp12 &r, const fp12 &a) {
   r.c0 = a.c0;
   fp6_neg(r.c1, a.c1);
+}
+
+// 1 / (a0 + a1 w) = (a0 - a1 w) / (a0^2 - v a1^2); 0 maps to 0
+static __device__ __noinline__ void fp12_inv(fp12 &r, const fp12 &a) {
+  fp6 t0, t1, tinv;
+  fp6_mul(t0, a.c0, a.c0);
+  fp6_mul(t1, a.c1, a.c1);
+  fp6_mul_by_v(t1, t1);
+  fp6_sub(t0, t0, t1);
+  fp6_inv(tinv, t0);
+  fp6_mul(t1, a.c1, tinv);
+  fp6_mul(r.c0, a.c0, tinv);
+  fp6_neg(r.c1, t1);
 }
 
 static __device__ __noinline__ void fp12_mul(fp12 &r, const fp12 &a, const fp12 &b) {

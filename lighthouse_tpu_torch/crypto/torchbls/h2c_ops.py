@@ -6,9 +6,9 @@ sqrt_ratio (branch-free candidate selects), the 3-isogeny in projective
 form, a Jacobian add and psi-based cofactor clearing — the formulas of the
 JAX package's h2c_ops, so the Jacobian outputs agree bit for bit.
 
-Plain torch in this slice, apart from the Montgomery conversion of the
-inputs (the fq_mont_mul kernel): the JAX package's fused hash-to-G2 kernel
-never lowered on its chip, so its main path ran this stage as plain XLA.
+These are the plain versions; the backend's h2c stage, kernels.hash_to_g2,
+routes CUDA tensors to the hand-written kernel csrc/h2c.cu, which follows
+these formulas term for term wherever the result is a point.
 """
 
 from __future__ import annotations
@@ -161,13 +161,3 @@ def hash_to_field_batch(messages, dst: bytes) -> np.ndarray:
             out[i, j, 0] = lb.pack(u[0])
             out[i, j, 1] = lb.pack(u[1])
     return out
-
-
-def hash_to_g2_jacobian(us):
-    """(n, 2, 2, NL) standard-form u-values -> batched Jacobian G2 points.
-    The Montgomery conversion is one batched product by R^2 through the
-    fq_mont_mul kernel (its plain version on CPU tensors)."""
-    from . import kernels
-
-    us = kernels.fq_mont_mul(us)
-    return map_to_g2(us[:, 0], us[:, 1])

@@ -8,13 +8,16 @@ kernels are built at first use (utils/torchcfg.build_kernels), never at
 import, and take the JAX package's interchange layout: int64 tensors of 24
 16-bit limbs per Fq element, Montgomery form, fully reduced.
 
-Kernel, source, and the Pallas kernel it replaces:
+Kernel, source, and the TPU kernel (or XLA function) it replaces:
   fq_mont_mul          csrc/fq_mont_mul.cu  scripts/probe_pallas.py:49, :76
   stage_prepare        csrc/prepare.cu      pallas_ops.py:410 _prepare_kernel
   stage_pairs          csrc/pairs.cu        pallas_ops.py:557 _pairs_kernel
   miller_loop_product  csrc/miller.cu       pallas_ops.py:229 _miller_kernel
   final_exp_hard_part  csrc/hard_part.cu    pallas_ops.py:292 _hard_part_kernel
-(pallas_ops.py is lighthouse_tpu/crypto/jaxbls/pallas_ops.py.)
+  hash_to_g2           csrc/h2c.cu          pallas_ops.py:641 _h2c_kernel
+  final_exp_easy_part  csrc/easy_part.cu    pairing_ops.py:296 final_exponentiation
+                                            (its easy part, kept in XLA there)
+(pallas_ops.py and pairing_ops.py are under lighthouse_tpu/crypto/jaxbls/.)
 """
 
 from __future__ import annotations
@@ -28,15 +31,17 @@ import torch
 
 from ...utils import torchcfg
 from ..bls381 import curve as pc
-from ..bls381.constants import P
+from ..bls381.constants import P, X_ABS
 from . import curve_ops as co
+from . import h2c_ops as h2
 from . import limbs as lb
 from . import pairing_ops as po
 from . import tower as tw
 
 NL = lb.NL
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("fq_mont_mul.cu", "prepare.cu", "pairs.cu", "miller.cu", "hard_part.cu")
+SOURCES = ("fq_mont_mul.cu", "prepare.cu", "pairs.cu", "miller.cu", "hard_part.cu", "h2c.cu",
+           "easy_part.cu")
 
 
 # ------------------------------------------------------------ build + load
@@ -52,19 +57,48 @@ def _c_array(name: str, words) -> str:
     return f"static __constant__ uint32_t {name}[12] = {{{', '.join(f'0x{w:08x}u' for w in words)}}};"
 
 
+def _c_table(name: str, limbs16) -> str:
+    """A __constant__ table of Fq elements: an array of 16-bit limbs with
+    the limbs on its last axis -> uint32_t name[...][12]."""
+    arr = np.asarray(limbs16)
+
+    def braces(a):
+        if a.ndim == 1:
+            return "{" + ", ".join(f"0x{w:08x}u" for w in _words32(a)) + "}"
+        return "{" + ", ".join(braces(x) for x in a) + "}"
+
+    dims = "".join(f"[{d}]" for d in arr.shape[:-1])
+    return f"static __constant__ uint32_t {name}{dims}[12] = {braces(arr)};"
+
+
 def consts_header() -> str:
     """bls_consts.cuh: the field and Frobenius constants of the kernels,
     from the same tables as the plain versions."""
     inv32 = (-pow(P, -1, 1 << 32)) % (1 << 32)
+    e_words = [(h2._E >> (32 * i)) & 0xFFFFFFFF for i in range((h2._E.bit_length() + 31) // 32)]
     lines = [
         "// generated by lighthouse_tpu_torch.crypto.torchbls.kernels.consts_header",
         "#pragma once",
         "#include <stdint.h>",
         f"#define FP_INV 0x{inv32:08x}u",
+        f"#define X_ABS 0x{X_ABS:016x}ull",
         _c_array("FP_P", _words32(lb.N_HOST)),
         _c_array("FP_PM2", _words32(lb.pack(P - 2))),
         _c_array("FP_ONE", _words32(lb.ONE_MONT)),
         _c_array("FP_R2", _words32(lb.R2_HOST)),
+        # hash-to-G2 (h2c.cu), from h2c_ops' and curve_ops' tables
+        _c_table("H2C_Z", h2._ISO_Z),
+        _c_table("H2C_A", h2._ISO_A),
+        _c_table("H2C_B", h2._ISO_B),
+        _c_table("H2C_NEG_A", h2._NEG_A),
+        _c_table("H2C_ZA", h2._ZA),
+        _c_table("H2C_CANDS", h2._CAND_CONSTS),
+        _c_table("H2C_ISO_K", h2._ISO_K),
+        _c_table("PSI_CX", co._PSI_CX),
+        _c_table("PSI_CY", co._PSI_CY),
+        f"#define H2C_E_BITS {h2._E.bit_length()}",
+        f"static __constant__ uint32_t H2C_E[{len(e_words)}] = "
+        f"{{{', '.join(f'0x{w:08x}u' for w in e_words)}}};",
     ]
     for k in (1, 2):
         coeff = tw.FROB12_COEFF[k].reshape(6, 2, NL)
@@ -92,6 +126,8 @@ def library() -> torchcfg.KernelLibrary:
         "lh_miller_scratch_words": ([i32], i64),
         "lh_miller_loop_product": ([vp] * 5 + [i32, vp, vp, vp], i32),
         "lh_final_exp_hard_part": ([vp, vp, vp], i32),
+        "lh_hash_to_g2": ([vp, i32, vp, vp, vp, vp], i32),
+        "lh_final_exp_easy_part": ([vp, vp, vp], i32),
     }
     for fname, (argtypes, restype) in sigs.items():
         fn = getattr(kl.lib, fname)
@@ -317,15 +353,11 @@ def miller_loop_product(p_aff, q_aff, valid_mask):
 # ------------------------------------------------------------ final-exp hard part
 
 
-def final_exp_hard_part_plain(t):
-    return po.final_exp_hard_part(t)
-
-
 def final_exp_hard_part(t):
     """The final exponentiation's hard part on one Fq12 through
     csrc/hard_part.cu (plain version on CPU tensors)."""
     if _on_cpu(t):
-        return final_exp_hard_part_plain(t)
+        return po.final_exp_hard_part(t)
     t = _limbs(t, tw.FQ12_ONE.shape, "t")
     out = torch.empty_like(t)
     _check(_lib().lh_final_exp_hard_part(_ptr(t), _ptr(out), _stream()), "final_exp_hard_part")
@@ -333,8 +365,47 @@ def final_exp_hard_part(t):
     return out
 
 
-# Every wrapper with its plain version, its source and the TPU kernel it
-# replaces. chip_smoke.py walks this table.
+# ------------------------------------------------------------ hash-to-G2
+
+
+def hash_to_g2_plain(us):
+    """Montgomery conversion of the standard-form u-values (n, 2, 2, NL),
+    then h2c_ops.map_to_g2: Jacobian (X, Y, Z), each (n, 2, NL)."""
+    us = lb.to_mont(us)
+    return h2.map_to_g2(us[:, 0], us[:, 1])
+
+
+def hash_to_g2(us):
+    """Hash-to-G2 of n messages' standard-form u-values (n, 2, 2, NL)
+    through csrc/h2c.cu (plain version on CPU tensors)."""
+    if _on_cpu(us):
+        return hash_to_g2_plain(us)
+    n = us.shape[0]
+    us = _limbs(us, (n, 2, 2, NL), "us")
+    X, Y, Z = (torch.empty((n, 2, NL), dtype=torch.int64, device=us.device) for _ in range(3))
+    _check(_lib().lh_hash_to_g2(_ptr(us), n, _ptr(X), _ptr(Y), _ptr(Z), _stream()), "hash_to_g2")
+    hash_to_g2.launches += 1
+    return X, Y, Z
+
+
+# ------------------------------------------------------------ final-exp easy part
+
+
+def final_exp_easy_part(m):
+    """The final exponentiation's easy part m^((p^6 - 1)(p^2 + 1)) on one
+    Fq12 through csrc/easy_part.cu (plain version on CPU tensors)."""
+    if _on_cpu(m):
+        return po.final_exp_easy_part(m)
+    m = _limbs(m, tw.FQ12_ONE.shape, "m")
+    out = torch.empty_like(m)
+    _check(_lib().lh_final_exp_easy_part(_ptr(m), _ptr(out), _stream()), "final_exp_easy_part")
+    final_exp_easy_part.launches += 1
+    return out
+
+
+# Every wrapper with its plain version, its source and the TPU kernel (or,
+# for the easy part, the XLA function) it replaces. chip_smoke.py walks
+# this table.
 KERNELS = {
     "fq_mont_mul": (fq_mont_mul, fq_mont_mul_plain, "fq_mont_mul.cu",
                     "scripts/probe_pallas.py:76"),
@@ -344,8 +415,12 @@ KERNELS = {
                     "lighthouse_tpu/crypto/jaxbls/pallas_ops.py:557"),
     "miller_loop_product": (miller_loop_product, miller_loop_product_plain, "miller.cu",
                             "lighthouse_tpu/crypto/jaxbls/pallas_ops.py:229"),
-    "final_exp_hard_part": (final_exp_hard_part, final_exp_hard_part_plain, "hard_part.cu",
+    "final_exp_hard_part": (final_exp_hard_part, po.final_exp_hard_part, "hard_part.cu",
                             "lighthouse_tpu/crypto/jaxbls/pallas_ops.py:292"),
+    "hash_to_g2": (hash_to_g2, hash_to_g2_plain, "h2c.cu",
+                   "lighthouse_tpu/crypto/jaxbls/pallas_ops.py:641"),
+    "final_exp_easy_part": (final_exp_easy_part, po.final_exp_easy_part, "easy_part.cu",
+                            "lighthouse_tpu/crypto/jaxbls/pairing_ops.py:296"),
 }
 
 for _wrapper, *_rest in KERNELS.values():

@@ -203,11 +203,11 @@ def final_exponentiation(m):
 
 def pairing_product_is_one(p_aff, q_aff, valid_mask):
     """prod_{i valid} e(P_i, Q_i) == 1 as a 0-dim bool tensor. The Miller
-    loop and the hard part go through kernels.py (CUDA kernels for CUDA
-    tensors, these plain versions for CPU ones); the easy part, with its one
-    Fq12 inversion, stays plain torch."""
+    loop and both parts of the final exponentiation go through kernels.py
+    (CUDA kernels for CUDA tensors, these plain versions for CPU ones), each
+    its own launch."""
     from . import kernels
 
     f = kernels.miller_loop_product(p_aff, q_aff, valid_mask)
-    f = kernels.final_exp_hard_part(final_exp_easy_part(f))
+    f = kernels.final_exp_hard_part(kernels.final_exp_easy_part(f))
     return tw.fq12_eq_one(f)

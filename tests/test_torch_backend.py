@@ -117,6 +117,14 @@ def test_stages_and_verdicts_match_jax():
     assert bool(bad) == bool(np.asarray(j_bad)) is False
     h_jac = TB.stage_h2c(us)
     assert same(h_jac, j_h2c)
+    # hash_to_g2's lanes here: the padding lane u = 0 (SWU's xd == 0 case)
+    # and, among the messages' u-values, both is_qr classes
+    from lighthouse_tpu.crypto.bls381 import hash_to_curve as ref_h2c
+    from lighthouse_tpu.crypto.bls381.constants import DST_POP
+    from test_torch_h2c import is_qr
+
+    qr = [is_qr(u) for s in sets for u in ref_h2c.hash_to_field_fq2(s.message, 2, DST_POP)]
+    assert any(qr) and not all(qr) and not bool(us[3].any())
     pairs = TB.stage_pairs(z_pk, h_jac, sig_acc, prepare_in[-1])
     assert same(pairs, j_pairs)
     assert bool(TB.stage_pairing(*pairs)) == j_ok is True
@@ -193,7 +201,10 @@ def test_import_and_cpu_verify_load_no_jax():
         "msg = b'\\x01' * 32\n"
         "from lighthouse_tpu_torch.crypto.bls.api import hash_to_g2_point\n"
         "sig = bls.Signature(cv.g2_mul(hash_to_g2_point(msg), sk))\n"
-        "assert TorchBackend(device='cpu').verify_single(pk, msg, sig)\n"
+        "be = TorchBackend(device='cpu')\n"
+        "assert be.verify_single(pk, msg, sig)\n"
+        "assert be.aggregate_verify([pk], [msg], sig)\n"
+        "assert be.verify_signature_sets_async([bls.SignatureSet(sig, [pk], msg)], [1]).result()\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'lighthouse_tpu.'))"
         " or m == 'lighthouse_tpu']\n"
         "assert not bad, bad\n"

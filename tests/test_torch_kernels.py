@@ -94,8 +94,18 @@ def miller_args(pairs, seed=9):
             (rand_limbs(seed + 2, (pairs, 2)), rand_limbs(seed + 3, (pairs, 2))), mask)
 
 
+def h2c_args(n=4, seed=13):
+    """Standard-form u-values (n, 2, 2, NL), lane 0 all zero (u = 0: SWU's
+    exceptional xd == 0 case)."""
+    us = rand_limbs(seed, (n, 2, 2))
+    us[0] = 0
+    return (us,)
+
+
 CASES = {
     "fq_mont_mul": lambda: (rand_limbs(0, (1000,)), rand_limbs(1, (1000,))),
+    "hash_to_g2": h2c_args,
+    "final_exp_easy_part": lambda: (rand_limbs(12, (2, 3, 2)),),
     "stage_prepare": lambda: prepare_args(4, 8),
     "stage_pairs": lambda: pairs_args(4),
     "miller_loop_product": lambda: miller_args(5),
@@ -143,7 +153,8 @@ def test_miller_kernel_any_pair_count(pairs, cuda):
     assert_same(K.miller_loop_product(*to_dev(args, cuda)), K.miller_loop_product_plain(*args))
 
 
-@pytest.mark.parametrize("name", ["fq_mont_mul", "final_exp_hard_part"])
+@pytest.mark.parametrize("name", ["fq_mont_mul", "final_exp_hard_part", "hash_to_g2",
+                                  "final_exp_easy_part"])
 def test_cpu_tensors_take_the_plain_version(name):
     wrapper, plain, _source, _replaces = K.KERNELS[name]
     args = CASES[name]()
@@ -166,17 +177,26 @@ def test_consts_header_carries_the_field_constants():
              .replace("u", "").split(",")]
     assert sum(w << (32 * i) for i, w in enumerate(words)) == P
     assert text.count("FROB1[6][2][12]") == text.count("FROB2[6][2][12]") == 1
+    assert "H2C_CANDS[8][2][12]" in text and "H2C_ISO_K[4][4][2][12]" in text
+    e_words = [int(w, 16) for w in re.search(r"H2C_E\[24\] = \{([^}]*)\}", text).group(1)
+               .replace("u", "").split(",")]
+    assert sum(w << (32 * i) for i, w in enumerate(e_words)) == (P * P - 9) // 16
 
 
-KERNEL_NAMES = ["final_exp_hard_part", "fq_mont_mul", "miller_loop_product", "stage_pairs",
-                "stage_prepare"]
+KERNEL_NAMES = ["final_exp_easy_part", "final_exp_hard_part", "fq_mont_mul", "hash_to_g2",
+                "miller_loop_product", "stage_pairs", "stage_prepare"]
 
 
 @pytest.mark.parametrize("name", KERNEL_NAMES)
 def test_kernel_table_points_at_sources_and_pallas_kernels(name):
+    """Each kernel replaces a Pallas kernel (its def or its pallas_call),
+    apart from the easy part, which replaces the XLA function that held it."""
     assert sorted(K.KERNELS) == KERNEL_NAMES
     _wrapper, _plain, source, replaces = K.KERNELS[name]
     assert (K.CSRC / source).exists()
+    assert source in K.SOURCES
     path, line = replaces.split(":")
     text = (REPO / path).read_text().splitlines()
-    assert re.search(r"def _\w+_kernel\(|pl\.pallas_call\(", text[int(line) - 1]), replaces
+    pattern = (r"^def final_exponentiation\(" if name == "final_exp_easy_part"
+               else r"def _\w+_kernel\(|pl\.pallas_call\(")
+    assert re.search(pattern, text[int(line) - 1]), replaces
