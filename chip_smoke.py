@@ -13,7 +13,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
   3. each kernel against its plain version on the card (torch.equal), on
      the real stage data of the 64 x 128 gossip batch, the 512-key sync
      aggregate and the one-key urgent verify, with its time (CUDA events),
-     the plain version's time and its bound; then hash_to_g2 on a batch of
+     the plain version's time and its bound (miller_loop_batch, phase 1 of
+     the Miller kernel, per pair; the Miller kernels also with their own
+     Fq products and dependent product rounds); then hash_to_g2 on a batch of
      edge lanes (u = 0, the EF vectors' messages, seeded random u-values
      with is_qr true and false);
   4. the paths through the public API, set_backend("torch"), each driven
@@ -49,10 +51,10 @@ VERIFY_REPEATS = 3                # verifies of the valid batch; the median is r
 PIPELINED = 8                     # submissions of the pipelined phase
 EF_BLS = os.path.join(ROOT, "tests", "ef", "vectors", "general", "phase0", "bls")
 # kernels each driven path must launch
-MAIN_PATH = ("stage_prepare", "hash_to_g2", "stage_pairs", "miller_loop_product",
-             "final_exp_easy_part", "final_exp_hard_part")
-AGGREGATE_PATH = ("hash_to_g2", "miller_loop_product", "final_exp_easy_part",
-                  "final_exp_hard_part")
+MAIN_PATH = ("stage_prepare", "hash_to_g2", "stage_pairs", "miller_loop_batch",
+             "miller_loop_product", "final_exp_easy_part", "final_exp_hard_part")
+AGGREGATE_PATH = ("hash_to_g2", "miller_loop_batch", "miller_loop_product",
+                  "final_exp_easy_part", "final_exp_hard_part")
 
 # H100 SXM peaks (NVIDIA data sheet): HBM 3.35 TB/s. Integer multiply-add:
 # 64 32-bit IMAD per clock per SM (CUDA C++ Programming Guide, throughput
@@ -141,11 +143,13 @@ def compare(kernel_out, plain_out) -> tuple[bool, int]:
 
 
 # ------------------------------------------------- Fq products per kernel
-# Counts of 381-bit Montgomery products each kernel performs on this run's
-# data, from its source: G1 double 7, G1 add 16; G2 double 16, G2 add 44
-# (an Fq2 product is 3, an Fq2 square 2); Fq12 product 54, cyclotomic
-# square 18, Fq12 square 36; an Fq inversion 381 squarings + popcount(p-2)
-# products. An addition with an identity operand does no product.
+# Counts of 381-bit Montgomery products each kernel's function needs on this
+# run's data (the Miller loop's: the least of two forms, below; the Miller
+# kernels' own counts stand beside them in the kernel rows): G1 double 7,
+# G1 add 16; G2 double 16, G2 add 44 (an Fq2 product is 3, an Fq2 square
+# 2); Fq12 product 54, cyclotomic square 18, Fq12 square 36; an Fq inversion
+# 381 squarings + popcount(p-2) products. An addition with an identity
+# operand does no product.
 
 
 def _popcount(x: int) -> int:
@@ -174,12 +178,32 @@ def fq_products_pairs(n: int) -> int:
     return (2 * n + 1) * (fq2_inv + 2 + 3) + n * 2 + (n + 1) * 6
 
 
-def fq_products_miller(pairs: int) -> int:
+def fq_products_miller_batch(mask) -> int:
+    """miller_loop_batch's least work: per unmasked pair 63 Fq12 squarings
+    (36), doubling steps (31) and sparse 014 line products (13 Fq2 products,
+    39), and the addition steps (40) with theirs on the other 1-bits of |x|;
+    the first squaring and line product, of f = 1, are free. A masked pair
+    gives 1 and costs nothing."""
     from lighthouse_tpu_torch.crypto.bls381.constants import X_ABS
 
+    per_pair = 63 * (36 + 31 + 39) + (_popcount(X_ABS) - 1) * (40 + 39) - 36 - 39
+    return int((mask != 0).sum()) * per_pair
+
+
+def fq_products_miller(mask) -> int:
+    """miller_loop_product's least work over this run's unmasked pairs L:
+    the fewer of one shared f (62 squarings past the first, of f = 1; each
+    pair's 63 doubling and 5 addition steps; every line multiplied into f by
+    the sparse 014 product, the first one into f = 1 free) and the per-pair
+    values of miller_loop_batch with a tree of L - 1 dense Fq12 products."""
+    from lighthouse_tpu_torch.crypto.bls381.constants import X_ABS
+
+    live = int((mask != 0).sum())
+    if not live:
+        return 0
     adds = _popcount(X_ABS) - 1
-    lines = 54 * (pairs - 1) + 54                     # line tree + fold into f
-    return 63 * (36 + 31 * pairs + lines) + adds * (40 * pairs + lines)
+    shared = 62 * 36 + live * (63 * (31 + 39) + adds * (40 + 39)) - 39
+    return min(shared, fq_products_miller_batch(mask) + (live - 1) * 54)
 
 
 def fq_products_hard_part() -> int:
@@ -263,6 +287,7 @@ def main() -> int:
     from lighthouse_tpu_torch.crypto.torchbls import curve_ops as co
     from lighthouse_tpu_torch.crypto.torchbls import kernels as K
     from lighthouse_tpu_torch.crypto.torchbls import limbs as lb
+    from lighthouse_tpu_torch.crypto.torchbls import rounds as RD
     from lighthouse_tpu_torch.crypto.torchbls import tower as tw
     from lighthouse_tpu_torch.utils import fixtures
 
@@ -333,10 +358,19 @@ def main() -> int:
             "hash_to_g2": ((us,), fq_products_h2c(n), 3),
             "stage_pairs": ((z_pk, h_jac, sig_acc, prepare_in[-1]), fq_products_pairs(n), 5),
             "miller_loop_product": ((pairs[:2], pairs[2:4], pairs[4]),
-                                    fq_products_miller(pairs[0].shape[0]), 3),
+                                    fq_products_miller(pairs[4]), 3),
+            "miller_loop_batch": ((pairs[:2], pairs[2:4], pairs[4]),
+                                  fq_products_miller_batch(pairs[4]), 3),
             "final_exp_easy_part": ((f,), fq_products_easy_part(), 5),
             "final_exp_hard_part": ((t_easy,), fq_products_hard_part(), 3),
         }
+        # the Miller kernels' own work beside the bound's: their Fq products
+        # and the dependent product rounds of the per-pair chain and tree
+        live, n_pairs = int((pairs[4] != 0).sum()), pairs[0].shape[0]
+        own = {"miller_loop_product": {"kernel_fq_products": RD.miller_products(live, n_pairs),
+                                       "product_rounds": RD.miller_rounds(n_pairs)},
+               "miller_loop_batch": {"kernel_fq_products": RD.miller_products(live, 1),
+                                     "product_rounds": RD.miller_rounds(1)}}
         rows = {}
         for name, (args, products, reps) in cases.items():
             wrapper, plain, _source, _replaces = K.KERNELS[name]
@@ -350,7 +384,8 @@ def main() -> int:
             ms = cuda_ms(lambda: wrapper(*args), reps)
             bms, by = bound_ms(products, bytes_needed(args) + bytes_needed(kout))
             rows[name] = {"max_abs_err": err, "equal": equal, "ms": ms, "plain_ms": plain_ms,
-                          "bound_ms": bms, "bound_by": by, "fq_products": products}
+                          "bound_ms": bms, "bound_by": by, "fq_products": products,
+                          **own.get(name, {})}
             emit({"phase": "kernel", "path": path, "bucket": [n, m], "name": name, **rows[name]})
             if not equal:
                 raise SystemExit(f"{name}: kernel disagrees with its plain version on the {path} path")
@@ -538,6 +573,7 @@ def main() -> int:
             "max_abs_err": g["max_abs_err"], "ms": g["ms"], "plain_ms": g["plain_ms"],
             "bound_ms": g["bound_ms"], "bound_by": g["bound_by"], "library_ms": None,
             "equal": g["equal"], "fq_products": g["fq_products"],
+            **{k: g[k] for k in ("kernel_fq_products", "product_rounds") if k in g},
             "launches_by_path": {path: launches[path][name] for path in launches},
             "sync": checks["sync"][name], "urgent": checks["urgent"][name],
         }

@@ -13,6 +13,8 @@ Kernel, source, and the TPU kernel (or XLA function) it replaces:
   stage_prepare        csrc/prepare.cu      pallas_ops.py:410 _prepare_kernel
   stage_pairs          csrc/pairs.cu        pallas_ops.py:557 _pairs_kernel
   miller_loop_product  csrc/miller.cu       pallas_ops.py:229 _miller_kernel
+  miller_loop_batch    csrc/miller.cu       pairing_ops.py:226 miller_loop_batch
+                                            (phase 1 of miller_loop_product)
   final_exp_hard_part  csrc/hard_part.cu    pallas_ops.py:292 _hard_part_kernel
   hash_to_g2           csrc/h2c.cu          pallas_ops.py:641 _h2c_kernel
   final_exp_easy_part  csrc/easy_part.cu    pairing_ops.py:296 final_exponentiation
@@ -36,6 +38,7 @@ from . import curve_ops as co
 from . import h2c_ops as h2
 from . import limbs as lb
 from . import pairing_ops as po
+from . import rounds
 from . import tower as tw
 
 NL = lb.NL
@@ -115,7 +118,8 @@ def consts_header() -> str:
 def library() -> torchcfg.KernelLibrary:
     """Build (or reuse) and load the kernel library, declaring every entry."""
     kl = torchcfg.build_kernels(
-        "lh_bls", [CSRC / s for s in SOURCES], CSRC, {"bls_consts.cuh": consts_header()}
+        "lh_bls", [CSRC / s for s in SOURCES], CSRC,
+        {"bls_consts.cuh": consts_header(), "miller_rounds.cuh": rounds.header()},
     )
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     sigs = {
@@ -123,8 +127,8 @@ def library() -> torchcfg.KernelLibrary:
         "lh_prepare_scratch_words": ([i32, i32], i64),
         "lh_stage_prepare": ([vp] * 7 + [i32, i32, i32] + [vp] * 9, i32),
         "lh_stage_pairs": ([vp] * 10 + [i32] + [vp] * 9, i32),
-        "lh_miller_scratch_words": ([i32], i64),
-        "lh_miller_loop_product": ([vp] * 5 + [i32, vp, vp, vp], i32),
+        "lh_miller_loop_batch": ([vp] * 5 + [i32, vp, vp], i32),
+        "lh_miller_tree": ([vp, i32, vp, vp], i32),
         "lh_final_exp_hard_part": ([vp, vp, vp], i32),
         "lh_hash_to_g2": ([vp, i32, vp, vp, vp, vp], i32),
         "lh_final_exp_easy_part": ([vp, vp, vp], i32),
@@ -329,24 +333,44 @@ def miller_loop_product_plain(p_aff, q_aff, valid_mask):
     return po.miller_loop_product(p_aff, q_aff, valid_mask != 0)
 
 
+def _miller_args(p_aff, q_aff, valid_mask):
+    n = p_aff[0].shape[0]
+    xp, yp = (_limbs(c, (n, NL), "p_aff") for c in p_aff)
+    xq, yq = (_limbs(c, (n, 2, NL), "q_aff") for c in q_aff)
+    return n, (xp, yp, xq, yq, _flags(valid_mask, (n,), "valid_mask"))
+
+
 def miller_loop_product(p_aff, q_aff, valid_mask):
-    """Shared-accumulator multi-Miller loop over P affine pairs through
-    csrc/miller.cu (plain version on CPU tensors). Returns one Fq12."""
-    xp, yp = p_aff
-    xq, yq = q_aff
-    if _on_cpu(xp):
+    """Multi-Miller loop over P affine pairs through csrc/miller.cu: the
+    per-pair values of miller_loop_batch (its own launch and count), then
+    their product tree, lh_miller_tree (plain version, the
+    shared-accumulator loop, on CPU tensors). Returns one Fq12."""
+    if _on_cpu(p_aff[0]):
         return miller_loop_product_plain(p_aff, q_aff, valid_mask)
-    n = xp.shape[0]
-    xp, yp = (_limbs(c, (n, NL), "p_aff") for c in (xp, yp))
-    xq, yq = (_limbs(c, (n, 2, NL), "q_aff") for c in (xq, yq))
-    mask = _flags(valid_mask, (n,), "valid_mask")
-    out = torch.empty(tw.FQ12_ONE.shape, dtype=torch.int64, device=xp.device)
-    lib = _lib()
-    scratch = torch.empty((lib.lh_miller_scratch_words(n),), dtype=torch.int32, device=xp.device)
-    _check(lib.lh_miller_loop_product(
-        _ptr(xp), _ptr(yp), _ptr(xq), _ptr(yq), _ptr(mask), n, _ptr(out), _ptr(scratch), _stream(),
-    ), "miller_loop_product")
+    values = miller_loop_batch(p_aff, q_aff, valid_mask)
+    n = values.shape[0]
+    if n == 1:
+        return values[0]
+    out = torch.empty(tw.FQ12_ONE.shape, dtype=torch.int64, device=values.device)
+    _check(_lib().lh_miller_tree(_ptr(values), n, _ptr(out), _stream()), "miller_loop_product")
     miller_loop_product.launches += 1
+    return out
+
+
+def miller_loop_batch_plain(p_aff, q_aff, valid_mask):
+    return po.miller_loop_batch(p_aff, q_aff, valid_mask != 0)
+
+
+def miller_loop_batch(p_aff, q_aff, valid_mask):
+    """Per-pair Miller values conj(f_i) (1 for a masked pair), (P, 2, 3, 2,
+    NL), through phase 1 of csrc/miller.cu (plain version on CPU tensors)."""
+    if _on_cpu(p_aff[0]):
+        return miller_loop_batch_plain(p_aff, q_aff, valid_mask)
+    n, args = _miller_args(p_aff, q_aff, valid_mask)
+    out = torch.empty((n,) + tw.FQ12_ONE.shape, dtype=torch.int64, device=args[0].device)
+    _check(_lib().lh_miller_loop_batch(*[_ptr(t) for t in args], n, _ptr(out), _stream()),
+           "miller_loop_batch")
+    miller_loop_batch.launches += 1
     return out
 
 
@@ -415,6 +439,8 @@ KERNELS = {
                     "lighthouse_tpu/crypto/jaxbls/pallas_ops.py:557"),
     "miller_loop_product": (miller_loop_product, miller_loop_product_plain, "miller.cu",
                             "lighthouse_tpu/crypto/jaxbls/pallas_ops.py:229"),
+    "miller_loop_batch": (miller_loop_batch, miller_loop_batch_plain, "miller.cu",
+                          "lighthouse_tpu/crypto/jaxbls/pairing_ops.py:226"),
     "final_exp_hard_part": (final_exp_hard_part, po.final_exp_hard_part, "hard_part.cu",
                             "lighthouse_tpu/crypto/jaxbls/pallas_ops.py:292"),
     "hash_to_g2": (hash_to_g2, hash_to_g2_plain, "h2c.cu",

@@ -27,7 +27,9 @@ X_BITS = [int(b) for b in bin(X_ABS)[3:]]
 def _dbl_step(r, xp, yp):
     """Jacobian doubling of R (G2) + the tangent line at P = (xp, yp) (G1,
     Montgomery), scaled by 2YZ^3. Returns (R2, (l0, l1, l2)) with
-    l(P) = l0 + l1*v + l2*v*w."""
+    l(P) = l0 + l1*v + l2*v*w. rounds.dbl_step restates it term for term
+    for csrc/miller.cu; tests/test_torch_rounds.py holds the two together,
+    so change both."""
     X, Y, Z = r
     A = tw.fq2_sqr(X)
     B = tw.fq2_sqr(Y)
@@ -49,7 +51,9 @@ def _dbl_step(r, xp, yp):
 
 def _add_step(r, q_aff, xp, yp):
     """Mixed Jacobian + affine addition R + Q and the line through R, Q at
-    P, scaled by Z3 = Z1*H."""
+    P, scaled by Z3 = Z1*H. rounds.add_step restates it term for term for
+    csrc/miller.cu; tests/test_torch_rounds.py holds the two together, so
+    change both."""
     X1, Y1, Z1 = r
     xq, yq = q_aff
     Z1Z1 = tw.fq2_sqr(Z1)
@@ -163,6 +167,30 @@ def miller_loop_product(p_aff, q_aff, valid_mask):
             r, line = _add_step(r, (xq, yq), xp, yp)
             f = tw.fq12_mul(f, _combine_lines(line, valid_mask))
     return tw.fq12_conj(f)
+
+
+def miller_loop_batch(p_aff, q_aff, valid_mask):
+    """Per-pair Miller loop over n affine pairs (the JAX package's
+    pairing_ops.miller_loop_batch): each pair keeps its own f_i, squared per
+    bit and multiplied by its own lines through the sparse fq12_mul_by_014;
+    conjugated for x < 0; masked lanes give 1. Returns (n, 2, 3, 2, NL).
+    Conjugation is a ring automorphism, so the tree product of these equals
+    miller_loop_product on the same inputs bit for bit."""
+    xp, yp = p_aff
+    xq, yq = q_aff
+    r = co.affine_to_jac(co.FQ2_OPS, (xq, yq))
+    one = lb.const(tw.FQ12_ONE, xp).expand((xp.shape[0],) + tw.FQ12_ONE.shape)
+    f = one
+    for bit in X_BITS:
+        f = tw.fq12_sqr(f)
+        r, (l0, l1, l2) = _dbl_step(r, xp, yp)
+        f = tw.fq12_mul_by_014(f, l0, l1, l2)
+        if bit:
+            r, (l0, l1, l2) = _add_step(r, (xq, yq), xp, yp)
+            f = tw.fq12_mul_by_014(f, l0, l1, l2)
+    f = tw.fq12_conj(f)
+    keep = (valid_mask != 0).reshape((-1,) + (1,) * 4)
+    return torch.where(keep, f, one)
 
 
 def _exp_neg_x(a):

@@ -109,6 +109,7 @@ CASES = {
     "stage_prepare": lambda: prepare_args(4, 8),
     "stage_pairs": lambda: pairs_args(4),
     "miller_loop_product": lambda: miller_args(5),
+    "miller_loop_batch": lambda: miller_args(5),
     "final_exp_hard_part": lambda: (rand_limbs(11, (2, 3, 2)),),
 }
 
@@ -147,14 +148,22 @@ def test_fq_mont_mul_without_b_is_the_montgomery_conversion():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("pairs", [1, 2, 3, 65])
+@pytest.mark.parametrize("pairs", [1, 2, 3, 5, 65, 129])
 def test_miller_kernel_any_pair_count(pairs, cuda):
+    """The product over any P (tree levels with odd stragglers), and each
+    pair's value from phase 1 against the plain per-pair loop. The product
+    launches phase 1 through miller_loop_batch, then its tree (none for
+    P = 1)."""
     args = miller_args(pairs)
+    before = (K.miller_loop_batch.launches, K.miller_loop_product.launches)
     assert_same(K.miller_loop_product(*to_dev(args, cuda)), K.miller_loop_product_plain(*args))
+    assert (K.miller_loop_batch.launches - before[0],
+            K.miller_loop_product.launches - before[1]) == (1, int(pairs > 1))
+    assert_same(K.miller_loop_batch(*to_dev(args, cuda)), K.miller_loop_batch_plain(*args))
 
 
 @pytest.mark.parametrize("name", ["fq_mont_mul", "final_exp_hard_part", "hash_to_g2",
-                                  "final_exp_easy_part"])
+                                  "final_exp_easy_part", "miller_loop_batch"])
 def test_cpu_tensors_take_the_plain_version(name):
     wrapper, plain, _source, _replaces = K.KERNELS[name]
     args = CASES[name]()
@@ -184,19 +193,24 @@ def test_consts_header_carries_the_field_constants():
 
 
 KERNEL_NAMES = ["final_exp_easy_part", "final_exp_hard_part", "fq_mont_mul", "hash_to_g2",
-                "miller_loop_product", "stage_pairs", "stage_prepare"]
+                "miller_loop_batch", "miller_loop_product", "stage_pairs", "stage_prepare"]
+
+# kernels that replace an XLA function of the JAX package, not a Pallas kernel
+XLA_FUNCTIONS = {"final_exp_easy_part": "final_exponentiation",
+                 "miller_loop_batch": "miller_loop_batch"}
 
 
 @pytest.mark.parametrize("name", KERNEL_NAMES)
 def test_kernel_table_points_at_sources_and_pallas_kernels(name):
     """Each kernel replaces a Pallas kernel (its def or its pallas_call),
-    apart from the easy part, which replaces the XLA function that held it."""
+    apart from the easy part and the per-pair Miller loop, which replace the
+    XLA functions that computed them."""
     assert sorted(K.KERNELS) == KERNEL_NAMES
     _wrapper, _plain, source, replaces = K.KERNELS[name]
     assert (K.CSRC / source).exists()
     assert source in K.SOURCES
     path, line = replaces.split(":")
     text = (REPO / path).read_text().splitlines()
-    pattern = (r"^def final_exponentiation\(" if name == "final_exp_easy_part"
+    pattern = (rf"^def {XLA_FUNCTIONS[name]}\(" if name in XLA_FUNCTIONS
                else r"def _\w+_kernel\(|pl\.pallas_call\(")
     assert re.search(pattern, text[int(line) - 1]), replaces

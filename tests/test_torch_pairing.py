@@ -1,9 +1,11 @@
 """The port's pairing (torchbls.pairing_ops, through the kernels' plain
 versions on CPU tensors) against the JAX package's pairing_ops under
-jax.jit: the Miller value, the final exponentiation and the product check,
-with 2 and 3 pairs (an odd count) and a masked lane. Tolerance: exact
-equality of every Fq12 limb.
+jax.jit: the Miller value, the per-pair Miller values of miller_loop_batch,
+the final exponentiation and the product check, with 2 and 3 pairs (an odd
+count) and a masked lane. Tolerance: exact equality of every Fq12 limb.
 """
+
+import functools
 
 import jax
 import numpy as np
@@ -119,3 +121,53 @@ def test_line_product_tree_is_order_free():
     dense = [TP._line_to_fq12(tuple(c[i] for c in line)) for i in range(3)]
     left = TT.fq12_mul(TT.fq12_mul(dense[2], dense[0]), dense[1])
     assert torch.equal(tree, left)
+
+
+def seeded_pairs(pairs, seed=41):
+    """Seeded random Fq limbs (Montgomery form, < p) for P pairs, pair 1
+    masked: the Miller loop's formulas need no points on the curve."""
+    from lighthouse_tpu_torch.crypto.bls381.constants import P as FIELD_P
+    from lighthouse_tpu_torch.crypto.torchbls import limbs as TL
+
+    rng = np.random.default_rng(seed)
+
+    def fq(shape):
+        n = int(np.prod(shape))
+        vals = [int.from_bytes(rng.bytes(48), "little") % FIELD_P for _ in range(n)]
+        return np.stack([TL.pack(v) for v in vals]).reshape(tuple(shape) + (TL.NL,))
+
+    mask = np.ones(pairs, bool)
+    mask[1:2] = False
+    return (fq((pairs,)), fq((pairs,))), (fq((pairs, 2)), fq((pairs, 2))), mask
+
+
+@functools.lru_cache(maxsize=None)
+def jax_miller_loop_batch():
+    return jax.jit(JP.miller_loop_batch)
+
+
+@functools.lru_cache(maxsize=None)
+def port_miller_loop_batch(pairs):
+    """The seeded inputs as torch tensors and the port's per-pair values,
+    computed once for the tests below."""
+    p_aff, q_aff, mask = seeded_pairs(pairs)
+    args = (ix.to_torch(p_aff), ix.to_torch(q_aff), torch.as_tensor(mask))
+    return (p_aff, q_aff, mask), args, TP.miller_loop_batch(*args)
+
+
+def test_miller_loop_batch_matches_jax():
+    """The per-pair values (sparse line products, masked lanes 1, conjugated
+    per pair) at P = 3 with pair 1 masked, bit for bit."""
+    (p_aff, q_aff, mask), _args, got = port_miller_loop_batch(3)
+    want = np.asarray(jax_miller_loop_batch()(p_aff, q_aff, mask))
+    assert got.shape == (3, 2, 3, 2, 24)
+    assert np.array_equal(ix.to_numpy(got), want)
+    assert bool(TT.fq12_eq_one(got[1]))
+
+
+def test_tree_of_miller_loop_batch_is_miller_loop_product():
+    """prod_i conj(f_i) equals the shared-accumulator value: what the CUDA
+    kernel's phase 2 relies on."""
+    _inputs, args, values = port_miller_loop_batch(3)
+    tree = TP.fq12_product_any(values)
+    assert torch.equal(tree, TP.miller_loop_product(*args))
