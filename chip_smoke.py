@@ -14,10 +14,11 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
      the real stage data of the 64 x 128 gossip batch, the 512-key sync
      aggregate and the one-key urgent verify, with its time (CUDA events),
      the plain version's time and its bound (miller_loop_batch, phase 1 of
-     the Miller kernel, per pair; the Miller kernels also with their own
-     Fq products and dependent product rounds); then hash_to_g2 on a batch of
-     edge lanes (u = 0, the EF vectors' messages, seeded random u-values
-     with is_qr true and false);
+     the Miller kernel, per pair; the Miller and hard-part kernels also
+     with their own Fq products, dependent product rounds and passes, and
+     the per-round and per-pass costs solved from the two); then
+     hash_to_g2 on a batch of edge lanes (u = 0, the EF vectors' messages,
+     seeded random u-values with is_qr true and false);
   4. the paths through the public API, set_backend("torch"), each driven
      with every launch count set to 0 just before it and read just after,
      and failed unless each kernel of its list launched in it:
@@ -79,8 +80,8 @@ def nvidia_smi() -> str:
 
 
 def ptxas_summary(log: str) -> list[dict]:
-    """Per entry kernel: registers, stack frame and spills, plus the largest
-    spill of any function compiled with it (noinline helpers)."""
+    """Per entry kernel: registers, static shared memory, stack frame and
+    spills."""
     import re
 
     props: dict = {}
@@ -103,7 +104,9 @@ def ptxas_summary(log: str) -> list[dict]:
             continue
         m = re.search(r"Used (\d+) registers", line)
         if m and current is not None:
+            smem = re.search(r"(\d+) bytes smem", line)
             current["registers"] = int(m.group(1))
+            current["smem_bytes"] = int(smem.group(1)) if smem else 0
     for e in entries:
         stack, st, ld = props.get(e["entry"], (0, 0, 0))
         e.update(stack_bytes=stack, spill_store_bytes=st, spill_load_bytes=ld)
@@ -207,10 +210,22 @@ def fq_products_miller(mask) -> int:
 
 
 def fq_products_hard_part() -> int:
-    from lighthouse_tpu_torch.crypto.bls381.constants import X_ABS
+    """pairing_ops.final_exp_hard_part's least work: five |x| chains (63
+    cyclotomic squarings, 18, and a product, 54, on each of the other
+    1-bits of |x|), seven Fq12 products, the square of t (36) and the two
+    Frobenius maps (per Fq2 coefficient none for 1, two for one in Fq or in
+    u Fq, three otherwise)."""
+    from lighthouse_tpu_torch.crypto.bls381.constants import P, X_ABS
+    from lighthouse_tpu_torch.crypto.torchbls import limbs as lb
+    from lighthouse_tpu_torch.crypto.torchbls import tower as tw
 
+    one, frob = lb.R_MONT % P, 0
+    for k in (1, 2):
+        c = [lb.unpack(x) for x in tw.FROB12_COEFF[k].reshape(12, lb.NL)]
+        frob += sum(0 if (re, im) == (one, 0) else 2 if 0 in (re, im) else 3
+                    for re, im in zip(c[0::2], c[1::2]))
     exp = 63 * 18 + (_popcount(X_ABS) - 1) * 54
-    return 5 * exp + 8 * 54 + 2 * 6 * 3
+    return 5 * exp + 7 * 54 + 36 + frob
 
 
 def fq_products_h2c(n: int) -> int:
@@ -364,13 +379,17 @@ def main() -> int:
             "final_exp_easy_part": ((f,), fq_products_easy_part(), 5),
             "final_exp_hard_part": ((t_easy,), fq_products_hard_part(), 3),
         }
-        # the Miller kernels' own work beside the bound's: their Fq products
-        # and the dependent product rounds of the per-pair chain and tree
+        # the round kernels' own work beside the bound's: their Fq products,
+        # the dependent product rounds of the per-pair chain and tree or of
+        # the hard part's sequence, and their passes (a block barrier each)
         live, n_pairs = int((pairs[4] != 0).sum()), pairs[0].shape[0]
         own = {"miller_loop_product": {"kernel_fq_products": RD.miller_products(live, n_pairs),
-                                       "product_rounds": RD.miller_rounds(n_pairs)},
+                                       "product_rounds": RD.miller_rounds(n_pairs),
+                                       "passes": RD.miller_passes(n_pairs)},
                "miller_loop_batch": {"kernel_fq_products": RD.miller_products(live, 1),
-                                     "product_rounds": RD.miller_rounds(1)}}
+                                     "product_rounds": RD.miller_rounds(1),
+                                     "passes": RD.miller_passes(1)},
+               "final_exp_hard_part": RD.hard_work()}
         rows = {}
         for name, (args, products, reps) in cases.items():
             wrapper, plain, _source, _replaces = K.KERNELS[name]
@@ -393,6 +412,21 @@ def main() -> int:
 
     checks = {"gossip": check_kernels("gossip", att), "sync": check_kernels("sync", sync),
               "urgent": check_kernels("urgent", [single])}
+
+    # microseconds per product round and per other pass, solved from two
+    # kernels that are one block's chain of passes each: the Miller
+    # kernel's per-pair phase (slot programs: two-operand linear passes)
+    # and the hard part (form programs: each pass evaluates its forms), at
+    # the gossip bucket
+    (m_r, m_p, m_ms), (h_r, h_p, h_ms) = (
+        (g["product_rounds"], g["passes"], g["ms"])
+        for g in (checks["gossip"]["miller_loop_batch"], checks["gossip"]["final_exp_hard_part"]))
+    det = m_r * (h_p - h_r) - h_r * (m_p - m_r)
+    us_round = 1e3 * (m_ms * (h_p - h_r) - h_ms * (m_p - m_r)) / det
+    us_pass = 1e3 * (m_r * h_ms - h_r * m_ms) / det
+    emit({"phase": "round_costs", "miller_loop_batch": [m_r, m_p - m_r, m_ms],
+          "final_exp_hard_part": [h_r, h_p - h_r, h_ms], "us_per_product_round": us_round,
+          "us_per_other_pass": us_pass})
 
     # hash_to_g2 on edge lanes: u = 0 (the xd == 0 case), the EF vectors'
     # messages, and seeded random u-values, among them is_qr true and false
@@ -573,7 +607,7 @@ def main() -> int:
             "max_abs_err": g["max_abs_err"], "ms": g["ms"], "plain_ms": g["plain_ms"],
             "bound_ms": g["bound_ms"], "bound_by": g["bound_by"], "library_ms": None,
             "equal": g["equal"], "fq_products": g["fq_products"],
-            **{k: g[k] for k in ("kernel_fq_products", "product_rounds") if k in g},
+            **{k: g[k] for k in ("kernel_fq_products", "product_rounds", "passes") if k in g},
             "launches_by_path": {path: launches[path][name] for path in launches},
             "sync": checks["sync"][name], "urgent": checks["urgent"][name],
         }

@@ -30,7 +30,7 @@
 // formulas and line scalings are pairing_ops' term for term (rounds.py).
 // Masked pairs give f_i = 1, as the identity lines of the shared form do.
 // No size gate (see prepare.cu).
-#include "miller_rounds.cuh"
+#include "round_programs.cuh"
 #include "rounds.cuh"
 
 #define MILLER_THREADS 64

@@ -292,53 +292,6 @@ static __device__ __noinline__ void fp12_sqr(fp12 &r, const fp12 &a) {
   fp6_add(r.c1, t, t);
 }
 
-// Fq4 squaring of (a + b s), s^2 = xi: (a^2 + xi b^2, (a + b)^2 - a^2 - b^2)
-static __device__ __forceinline__ void fp4_sqr(fp2 &c0, fp2 &c1, const fp2 &a, const fp2 &b) {
-  fp2 t0, t1, ts;
-  fp2_sqr(t0, a);
-  fp2_sqr(t1, b);
-  fp2_add(ts, a, b);
-  fp2_sqr(ts, ts);
-  fp2_mul_by_xi(c0, t1);
-  fp2_add(c0, c0, t0);
-  fp2_sub(ts, ts, t0);
-  fp2_sub(c1, ts, t1);
-}
-
-// 3 c - 2 g and 3 c + 2 g
-static __device__ __forceinline__ void fp2_3c_minus_2g(fp2 &r, const fp2 &c, const fp2 &g) {
-  fp2 d;
-  fp2_sub(d, c, g);
-  fp2_dbl(d, d);
-  fp2_add(r, c, d);
-}
-
-static __device__ __forceinline__ void fp2_3c_plus_2g(fp2 &r, const fp2 &c, const fp2 &g) {
-  fp2 s;
-  fp2_add(s, c, g);
-  fp2_dbl(s, s);
-  fp2_add(r, c, s);
-}
-
-// Granger-Scott squaring in the cyclotomic subgroup, with the JAX package's
-// wiring: a = (g0, g1, g2 | g3, g4, g5); Fq4 squares of (g0,g4), (g3,g2),
-// (g1,g5); a0' = 3 c0 - 2 (g0, g1, g2), a1' = 3 (xi cC1, cA1, cB1) + 2 (g3, g4, g5).
-static __device__ __noinline__ void fp12_cyclotomic_sqr(fp12 &r, const fp12 &a) {
-  fp2 cA0, cA1, cB0, cB1, cC0, cC1, x;
-  fp4_sqr(cA0, cA1, a.c0.c0, a.c1.c1);
-  fp4_sqr(cB0, cB1, a.c1.c0, a.c0.c2);
-  fp4_sqr(cC0, cC1, a.c0.c1, a.c1.c2);
-  fp12 o;
-  fp2_3c_minus_2g(o.c0.c0, cA0, a.c0.c0);
-  fp2_3c_minus_2g(o.c0.c1, cB0, a.c0.c1);
-  fp2_3c_minus_2g(o.c0.c2, cC0, a.c0.c2);
-  fp2_mul_by_xi(x, cC1);
-  fp2_3c_plus_2g(o.c1.c0, x, a.c1.c0);
-  fp2_3c_plus_2g(o.c1.c1, cA1, a.c1.c1);
-  fp2_3c_plus_2g(o.c1.c2, cB1, a.c1.c2);
-  r = o;
-}
-
 // a^(p^power), power 1 or 2: conjugate every Fq2 component for odd powers,
 // then multiply component (i, j) by the generated coefficient FROB_k[3i + j]
 static __device__ __noinline__ void fp12_frobenius(fp12 &r, const fp12 &a, int power) {

@@ -119,7 +119,7 @@ def library() -> torchcfg.KernelLibrary:
     """Build (or reuse) and load the kernel library, declaring every entry."""
     kl = torchcfg.build_kernels(
         "lh_bls", [CSRC / s for s in SOURCES], CSRC,
-        {"bls_consts.cuh": consts_header(), "miller_rounds.cuh": rounds.header()},
+        {"bls_consts.cuh": consts_header(), "round_programs.cuh": rounds.header()},
     )
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     sigs = {

@@ -1,41 +1,61 @@
 """Product-round schedules: Fq12 arithmetic spread over the threads of a block.
 
 A schedule is straight-line Fq code, traced once from the tower formulas
-below (the Miller loop's doubling and addition steps with their Fq12
-squaring and sparse line product, and the dense Fq12 product), and cut into
-passes that csrc/rounds.cuh runs with one operation per thread and a block
-barrier after each pass:
+below and cut into passes that csrc/rounds.cuh runs with one operation per
+thread and a block barrier after each pass. Every product of product-depth
+k (products on its longest input path) sits in *round* k, a pass of
+independent Montgomery products, so the rounds a program takes are its
+product depth; a dependent chain of rounds is the latency floor of the
+design. There are two kinds of schedule:
 
-- a *product round* holds the Montgomery products whose operands are ready,
-  one per thread (a block of 64 threads runs the 45 products of a doubling
-  step's first round at once);
-- *linear passes* between the rounds form the sums, differences and copies
-  (x xi, x 3, x 8 and negation are sums and differences too).
+- `Program` (the Miller loop of csrc/miller.cu: the doubling and addition
+  steps with their Fq12 squaring and sparse line product, and the dense
+  Fq12 product of its tree): the sums, differences and copies between the
+  rounds are *linear passes* of two-operand ops (x xi, x 3, x 8 and
+  negation are sums and differences too), and a final COPY pass writes an
+  in-place program's outputs into its state;
+- `FormProgram` (the final exponentiation's hard part, csrc/hard_part.cu:
+  the Granger-Scott cyclotomic squaring, the product by the chain's base,
+  and the link programs between the five |x|-exponentiations): every
+  operand is a *form*, a short sum of slots with small integer
+  coefficients that the reading thread evaluates itself, so a program is
+  its rounds of products of two forms and one pass that writes each output
+  form into its state slot: two passes for a squaring or a product, where
+  linear passes take 11 and 13.
 
-Every product of product-depth k (products on its longest input path) sits in
-round k, so the rounds a step takes are its product depth; a dependent chain
-of rounds is the latency floor of the design. Operands live in shared-memory
-slots; `header()` emits each program as a table of 32-bit operation words
-(kind, out, a, b: 2 + 3 x 10 bits) into the generated header
-miller_rounds.cuh. tests/test_torch_rounds.py executes the same programs
-on Python integers, pass by pass with the parallel semantics of the card
+Operands live in shared-memory slots; `header()` emits each program as a
+table of 32-bit operation words (kind, out, a, b: 2 + 3 x 10 bits; in a
+form program a and b index its table of forms) into the generated header
+round_programs.cuh. tests/test_torch_rounds.py executes the same tables on
+Python integers, pass by pass with the parallel semantics of the card
 (every operand read before any result of the pass is written), against the
 plain versions, and refuses a pass in which one operation reads or writes a
 slot another one writes.
 
-All results are exact mod p and fully reduced, so any exact formula gives
-the plain versions' bits; only the point formulas and line scaling of
-pairing_ops are followed term for term.
+All results are exact mod p and fully reduced, so any formula for the same
+polynomial gives the plain versions' bits; the point formulas and line
+scaling of pairing_ops and the Granger-Scott squaring (which equals a^2
+only in the cyclotomic subgroup) are followed term for term.
 """
 
 from __future__ import annotations
 
 import functools
 
+from ..bls381.constants import P
+from . import limbs as lb
+from . import tower as tw
 from .pairing_ops import X_BITS
 
 MUL, ADD, SUB, COPY = 0, 1, 2, 3       # csrc/rounds.cuh's RND_* kinds
 SLOT_BITS = 10
+# a term of a form: slot | TERM_LAST on a form's last term | coefficient << 16
+# (int16); rounds.cuh's form_load reduces sums below FORM_BOUND * p
+TERM_LAST = 1 << 15
+FORM_BOUND = 1 << 10
+# its quotient estimate: floor(v / p) is floor((v >> 330) FORM_RECIP / 2^64)
+# or one more, for v < FORM_BOUND p
+FORM_RECIP = (1 << 64) // ((P >> 330) + 1)
 
 
 # ------------------------------------------------------------ tracing
@@ -196,6 +216,54 @@ def f12_mul_by_014(a, l0, l1, l2):
     return (out0, out1)
 
 
+def f12_conj(a, zero):
+    return (a[0], tuple(f2_neg(x, zero) for x in a[1]))
+
+
+def f12_cyclotomic_sqr(a):
+    """tower.fq12_cyclotomic_sqr term for term (a change there is repeated
+    here): Fq4 squarings of the pairs (g0, g4), (g3, g2), (g1, g5); the
+    real half 3 c0 - 2 (g0, g1, g2), the w-half 3 (xi cC1, cA1, cB1) +
+    2 (g3, g4, g5). 18 Fq products."""
+    (g0, g1, g2), (g3, g4, g5) = a
+    pairs = ((g0, g4), (g3, g2), (g1, g5))
+    t0 = [f2_sqr(x) for x, _y in pairs]
+    t1 = [f2_sqr(y) for _x, y in pairs]
+    ts = [f2_sqr(f2_add(x, y)) for x, y in pairs]
+    r0 = [f2_add(x, f2_mul_by_xi(y)) for x, y in zip(t0, t1)]
+    r1 = [f2_sub(f2_sub(s, x), y) for s, x, y in zip(ts, t0, t1)]
+    lo = tuple(f2_add(r, f2_dbl(f2_sub(r, g))) for r, g in zip(r0, (g0, g1, g2)))
+    hi_t = (f2_mul_by_xi(r1[2]), r1[0], r1[1])
+    hi = tuple(f2_add(h, f2_dbl(f2_add(h, g))) for h, g in zip(hi_t, (g3, g4, g5)))
+    return (lo, hi)
+
+
+def f12_frobenius(a, power, coeff, values, zero):
+    """tower.fq12_frobenius: for odd powers conjugate every Fq2 component,
+    then multiply component (h, j) by the coefficient block `coeff` (its 12
+    Fq inputs; `values`, their Montgomery-form integers). A product by the
+    coefficient 1 is dropped and one by a coefficient in Fq or in u Fq
+    takes two products: the same values as the Fq2 product."""
+    one = lb.R_MONT % P
+    out = []
+    for h in range(2):
+        row = []
+        for j in range(3):
+            x = a[h][j] if power % 2 == 0 else (a[h][j][0], zero - a[h][j][1])
+            k = 6 * h + 2 * j
+            c = _f2(coeff, k)
+            if (values[k], values[k + 1]) == (one, 0):
+                row.append(x)
+            elif values[k + 1] == 0:
+                row.append(f2_mul_fp(x, c[0]))
+            elif values[k] == 0:            # (x0 + x1 u) c1 u = -x1 c1 + x0 c1 u
+                row.append((zero - x[1] * c[1], x[0] * c[1]))
+            else:
+                row.append(f2_mul(x, c))
+        out.append(tuple(row))
+    return tuple(out)
+
+
 def dbl_step(r, xp, yp, zero):
     """pairing_ops._dbl_step term for term (a change there is repeated
     here): Jacobian doubling of R and the tangent line at P, scaled by
@@ -253,7 +321,45 @@ def _f12(v):
 # ------------------------------------------------------------ scheduling
 
 
-class Program:
+def _assign_slots(name, by_pass, last_use, slot, first) -> int:
+    """Temporaries by liveness: each node of by_pass[p] gets a slot from
+    `first` on (into `slot`), reusing one whose last reader was pass p - 1
+    or earlier. Returns the slot count."""
+    free: list = []
+    nxt = first
+    releases: dict = {}
+    for n in sorted(n for nodes in by_pass for n in nodes):
+        releases.setdefault(last_use[n], []).append(n)
+    for p, nodes in enumerate(by_pass):
+        for n in releases.get(p - 1, []):
+            free.append(slot[n])
+        for n in nodes:
+            if free:
+                slot[n] = free.pop()
+            else:
+                slot[n] = nxt
+                nxt += 1
+    if nxt >= 1 << SLOT_BITS:
+        raise ValueError(f"{name}: {nxt} slots do not fit {SLOT_BITS} bits")
+    return nxt
+
+
+class _Schedule:
+    passes: list
+
+    @property
+    def products(self) -> int:
+        return sum(1 for ops in self.passes for op in ops if op[0] == MUL)
+
+    @property
+    def product_rounds(self) -> int:
+        return sum(1 for ops in self.passes if any(op[0] == MUL for op in ops))
+
+    def widest(self) -> int:
+        return max(len(ops) for ops in self.passes)
+
+
+class Program(_Schedule):
     """A schedule over slots: `inputs` name the first slots in order, ops are
     (kind, out, a, b) slot tuples grouped into passes, `out_slots[k]` holds
     the k-th output after the last pass (with `in_place`, a final COPY pass
@@ -312,24 +418,8 @@ class Program:
             if n in last_use:
                 last_use[n] = n_passes      # read by the copy pass or after the program
         slot = dict(slot_of_input)
-        free: list = []
-        nxt = len(inputs)
         by_pass = [[n for n in order if pass_of[n] == p] for p in range(len(keys))]
-        releases: dict = {}
-        for n in order:
-            releases.setdefault(last_use[n], []).append(n)
-        for p, nodes in enumerate(by_pass):
-            for n in releases.get(p - 1, []):
-                free.append(slot[n])
-            for n in nodes:
-                if free:
-                    slot[n] = free.pop()
-                else:
-                    slot[n] = nxt
-                    nxt += 1
-        self.slots = nxt
-        if nxt >= 1 << SLOT_BITS:
-            raise ValueError(f"{name}: {nxt} slots do not fit {SLOT_BITS} bits")
+        self.slots = _assign_slots(name, by_pass, last_use, slot, len(inputs))
         self.passes = [[(kind[n], slot[n], slot[args[n][0]], slot[args[n][1]]) for n in nodes]
                        for nodes in by_pass]
         if in_place:
@@ -341,16 +431,91 @@ class Program:
         else:
             self.out_slots = [slot[n] for n in outs]
 
-    @property
-    def products(self) -> int:
-        return sum(1 for ops in self.passes for op in ops if op[0] == MUL)
 
-    @property
-    def product_rounds(self) -> int:
-        return sum(1 for ops in self.passes if any(op[0] == MUL for op in ops))
+class FormProgram(_Schedule):
+    """A schedule whose operands are forms: `inputs` name the first slots in
+    order (an input named "zero" is the empty form, and takes no slot);
+    `outputs` are (target slot, node) pairs. Every node is a form, a sum
+    sum_i c_i x_i with integer c_i over *basis* nodes x_i (inputs and
+    products); products with the same two forms are one. Pass k < D holds
+    the products of depth k + 1 as (MUL, out, a, b), a and b the indexes of
+    their operand forms; pass D writes each output as (COPY, target, f, f),
+    f its form's index. Form i is the terms of `terms` from `forms[i]` up to
+    the one marked last; a term is (slot, coefficient, last)."""
 
-    def widest(self) -> int:
-        return max(len(ops) for ops in self.passes)
+    def __init__(self, name, tracer, inputs, outputs):
+        self.name = name
+        kind, args = tracer.kind, tracer.args
+        slot_of_input = {x.i: k for k, x in enumerate(inputs)}
+        form, operands, depth, mul_of = {}, {}, {}, {}
+        for n in range(1 + max(x.i for _t, x in outputs)):
+            if kind[n] == "in":
+                if args[n] == "zero":
+                    form[n] = {}
+                elif n in slot_of_input:
+                    form[n], depth[n] = {n: 1}, 0
+                continue
+            fa, fb = (form.get(x) for x in args[n])
+            if fa is None or fb is None:
+                continue            # reads an input that is not in the layout
+            if kind[n] != MUL:
+                f = dict(fa)
+                for x, c in fb.items():
+                    f[x] = f.get(x, 0) + (c if kind[n] == ADD else -c)
+                form[n] = {x: c for x, c in f.items() if c}
+            elif fa and fb:
+                key = tuple(sorted(tuple(sorted(f.items())) for f in (fa, fb)))
+                m = mul_of.setdefault(key, n)
+                if m == n:
+                    operands[n] = (fa, fb)
+                    depth[n] = 1 + max(depth[x] for f in (fa, fb) for x in f)
+                form[n] = {m: 1}
+            else:
+                form[n] = {}        # a product by zero
+        outs = [(target, form.get(x.i)) for target, x in outputs]
+        if any(not f for _t, f in outs):
+            raise ValueError(f"{name}: an output is zero or reads an input not in the layout")
+        # the products the outputs need, by round; the last pass reads them
+        live, stack = set(), [x for _t, f in outs for x in f]
+        while stack:
+            x = stack.pop()
+            if x not in live:
+                live.add(x)
+                stack.extend(y for f in operands.get(x, ()) for y in f)
+        muls = sorted(x for x in live if kind[x] == MUL)
+        rounds = max((depth[x] for x in muls), default=0)
+        last_use = {x: -1 for x in muls}
+        for u in muls:
+            for y in {y for f in operands[u] for y in f}.intersection(last_use):
+                last_use[y] = max(last_use[y], depth[u] - 1)
+        for y in {y for _t, f in outs for y in f}.intersection(last_use):
+            last_use[y] = rounds
+        slot = dict(slot_of_input)
+        by_pass = [[x for x in muls if depth[x] == k + 1] for k in range(rounds)]
+        self.slots = _assign_slots(name, by_pass, last_use, slot, len(inputs))
+        self.terms: list = []
+        self.forms: list = []
+        index: dict = {}
+
+        def encode(f) -> int:
+            items = tuple(sorted((slot[x], c) for x, c in f.items()))
+            if items not in index:
+                if sum(abs(c) for _s, c in items) >= FORM_BOUND:
+                    raise ValueError(f"{name}: a form's coefficients reach {FORM_BOUND}")
+                index[items] = len(self.forms)
+                self.forms.append(len(self.terms))
+                self.terms += [(s, c, k == len(items) - 1) for k, (s, c) in enumerate(items)]
+            return index[items]
+
+        self.passes = [[(MUL, slot[x], encode(operands[x][0]), encode(operands[x][1]))
+                        for x in nodes] for nodes in by_pass]
+        self.passes.append([(COPY, t, encode(f), encode(f)) for t, f in outs])
+        self.out_slots = [t for t, _f in outs]
+        read = {s for _t, f in outs for s in (slot[x] for x in f)}
+        if read.intersection(self.out_slots) or len(set(self.out_slots)) != len(outs):
+            raise ValueError(f"{name}: the last pass reads or writes a target twice")
+        if len(self.forms) > 1 << SLOT_BITS:
+            raise ValueError(f"{name}: {len(self.forms)} forms do not fit {SLOT_BITS} bits")
 
 
 MILLER_STATE = (["xp", "yp", "xq0", "xq1", "yq0", "yq1", "X0", "X1", "Y0", "Y1", "Z0", "Z1"]
@@ -407,6 +572,129 @@ def miller_products(live_pairs: int, pairs: int) -> int:
     return live_pairs * per_pair + (pairs - 1) * progs["fq12_mul"].products
 
 
+def miller_passes(pairs: int) -> int:
+    """Passes (product rounds and linear passes, one block barrier each) of
+    miller_loop_product over `pairs` pairs: the per-pair chain, then the
+    tree levels."""
+    progs = programs()
+    levels = max(pairs - 1, 0).bit_length()
+    return (len(X_BITS) * len(progs["dbl"].passes) + sum(X_BITS) * len(progs["add"].passes)
+            + levels * len(progs["fq12_mul"].passes))
+
+
+# ------------------------------------------------- the final exponentiation's hard part
+
+# The hard part's state, twelve slots per area: the easy-part output t, the
+# base b of the current |x|-exponentiation, its accumulator in a0 or a1 (a
+# squaring or product reads one and writes the other, so no copy pass), the
+# saved y2, the off-chain product k, the Frobenius coefficient blocks.
+HARD_AREAS = ("t", "b", "a0", "a1", "y2", "k", "frob1", "frob2")
+HARD_STATE = [f"{area}_{k}" for area in HARD_AREAS for k in range(12)]
+_FROB_VALUES = {k: [lb.unpack(c) for c in tw.FROB12_COEFF[k].reshape(12, lb.NL)] for k in (1, 2)}
+
+
+def _hard_program(name, build) -> FormProgram:
+    """A form program over HARD_STATE; `build(area, frob, zero)` returns
+    {area: Fq12} for the areas it writes."""
+    t = Tracer()
+    ins = [t.input(n) for n in HARD_STATE]
+    area = {a: _f12(ins[12 * k:12 * k + 12]) for k, a in enumerate(HARD_AREAS)}
+    zero = t.input("zero")
+
+    def frob(x, power):
+        k = 12 * HARD_AREAS.index(f"frob{power}")
+        return f12_frobenius(x, power, ins[k:k + 12], _FROB_VALUES[power], zero)
+
+    outputs = [(12 * HARD_AREAS.index(a) + k, x)
+               for a, value in build(area, frob, zero).items() for k, x in enumerate(_flat(value))]
+    return FormProgram(name, t, ins, outputs)
+
+
+def _links():
+    """The programs between the |x|-exponentiations of
+    pairing_ops.final_exp_hard_part. Chain c takes its base from b and its
+    accumulator in a{c % 2}, and leaves acc = base^|x| there (so
+    _exp_neg_x(base) = conj(acc)); link c reads it and sets b and
+    a{(c + 1) % 2} for chain c + 1. t^3, frob(y2, 2) and conj(y2) t^3 are
+    computed beside the chain, in k, so the last link is one round:
+      link0  y0 = conj(acc) conj(t)           k = t^2
+      link1  y1 = conj(acc) conj(y0)          k = t^3
+      link2  y2 = conj(acc) frob(y1, 1)       saved in y2
+      link3  base = conj(acc) = y2^x          k = frob(y2, 2) conj(y2) t^3
+      fin    out = conj(acc) k into a1"""
+    def link0(v, frob, zero):
+        y0 = f12_mul(f12_conj(v["a0"], zero), f12_conj(v["t"], zero))
+        return {"b": y0, "a1": y0, "k": f12_sqr(v["t"])}
+
+    def link1(v, frob, zero):
+        y1 = f12_mul(f12_conj(v["a1"], zero), f12_conj(v["b"], zero))
+        return {"b": y1, "a0": y1, "k": f12_mul(v["k"], v["t"])}
+
+    def link2(v, frob, zero):
+        y2 = f12_mul(f12_conj(v["a0"], zero), frob(v["b"], 1))
+        return {"b": y2, "a1": y2, "y2": y2}
+
+    def link3(v, frob, zero):
+        base = f12_conj(v["a1"], zero)
+        k = f12_mul(frob(v["y2"], 2), f12_mul(f12_conj(v["y2"], zero), v["k"]))
+        return {"b": base, "a0": base, "k": k}
+
+    def fin(v, frob, zero):
+        return {"a1": f12_mul(f12_conj(v["a0"], zero), v["k"])}
+
+    return {"link0": link0, "link1": link1, "link2": link2, "link3": link3, "fin": fin}
+
+
+@functools.lru_cache(maxsize=None)
+def hard_programs() -> dict:
+    """csrc/hard_part.cu's form programs: the cyclotomic squaring and the
+    product by the base from each accumulator area into the other, and the
+    links (`_links`)."""
+    out = {}
+    for src in (0, 1):
+        dst = f"a{1 - src}"
+        out[f"sqr{src}"] = _hard_program(
+            f"sqr{src}", lambda v, frob, zero, s=src, d=dst: {d: f12_cyclotomic_sqr(v[f"a{s}"])})
+        out[f"mul{src}"] = _hard_program(
+            f"mul{src}", lambda v, frob, zero, s=src, d=dst: {d: f12_mul(v[f"a{s}"], v["b"])})
+    for name, build in _links().items():
+        out[name] = _hard_program(name, build)
+    return out
+
+
+HARD_OUT = 12 * HARD_AREAS.index("a1")       # fin writes the result here
+
+
+@functools.lru_cache(maxsize=None)
+def hard_sequence() -> tuple:
+    """The programs hard_part.cu runs, in order: per chain, for each bit of
+    |x| after the leading one a squaring and on a set bit a product (each
+    from one accumulator area into the other), then the chain's link."""
+    seq = []
+    for c, link in enumerate(_links()):
+        acc = c % 2
+        for bit in X_BITS:
+            seq.append(f"sqr{acc}")
+            acc ^= 1
+            if bit:
+                seq.append(f"mul{acc}")
+                acc ^= 1
+        if acc != c % 2:
+            raise ValueError("a chain must end in the area it started in")
+        seq.append(link)
+    return tuple(seq)
+
+
+def hard_work() -> dict:
+    """final_exp_hard_part's kernel over its sequence: its Fq products,
+    dependent product rounds and passes (one block barrier each)."""
+    progs = hard_programs()
+    seq = [progs[s] for s in hard_sequence()]
+    return {"kernel_fq_products": sum(p.products for p in seq),
+            "product_rounds": sum(p.product_rounds for p in seq),
+            "passes": sum(len(p.passes) for p in seq)}
+
+
 # ------------------------------------------------------------ the header
 
 
@@ -415,19 +703,28 @@ def _c_words(ctype: str, name: str, words: list) -> str:
     return f"static __constant__ {ctype} {name}[{len(words)}] = {{\n  " + ",\n  ".join(rows) + "};"
 
 
+def _op_words(passes) -> tuple:
+    words, offsets = [], [0]
+    for ops in passes:
+        words += [(k << 3 * SLOT_BITS) | (o << 2 * SLOT_BITS) | (a << SLOT_BITS) | b
+                  for k, o, a, b in ops]
+        offsets.append(len(words))
+    return words, offsets
+
+
 def header() -> str:
-    """miller_rounds.cuh: each program's operation words, pass offsets and
-    slot layout, for csrc/rounds.cuh's run_program."""
+    """round_programs.cuh, for csrc/rounds.cuh: each Miller program's
+    operation words, pass offsets and slot layout (MR_*); the hard part's
+    programs (HP_*) as one table each of words, pass offsets, forms (offsets
+    into the terms, which are global) and terms, with every program's
+    offsets into the first three, its sequence of programs and its
+    state layout; the constant of form_load's reduction."""
     progs = programs()
     lines = ["// generated by lighthouse_tpu_torch.crypto.torchbls.rounds.header",
              "#pragma once", "#include <stdint.h>"]
     for name, prog in progs.items():
         up = f"MR_{name.upper()}"
-        words, offsets = [], [0]
-        for ops in prog.passes:
-            words += [(k << 3 * SLOT_BITS) | (o << 2 * SLOT_BITS) | (a << SLOT_BITS) | b
-                      for k, o, a, b in ops]
-            offsets.append(len(words))
+        words, offsets = _op_words(prog.passes)
         lines += [
             f"// {name}: {prog.products} products in {prog.product_rounds} rounds, "
             f"{len(prog.passes)} passes, {prog.slots} slots",
@@ -441,4 +738,42 @@ def header() -> str:
             lines.append(_c_words("uint16_t", f"{up}_OUT", prog.out_slots))
     for k, name in enumerate(MILLER_STATE):
         lines.append(f"#define MR_SLOT_{name.upper()} {k}")
+    hard = hard_programs()
+    ops, passes, forms, terms, index = [], [], [], [], {}
+    for k, (name, prog) in enumerate(hard.items()):
+        words, offsets = _op_words(prog.passes)
+        index[name] = (k, len(ops), len(passes), len(forms), len(prog.passes))
+        ops += words
+        passes += offsets
+        forms += [len(terms) + f for f in prog.forms]
+        terms += [((c & 0xFFFF) << 16) | (TERM_LAST if last else 0) | s for s, c, last in prog.terms]
+        lines.append(f"// HP program {k}, {name}: {prog.products} products in "
+                     f"{prog.product_rounds} rounds, {len(prog.passes)} passes, "
+                     f"{len(prog.terms)} terms, {prog.slots} slots")
+    if len(terms) > 1 << 16:
+        raise ValueError(f"{len(terms)} terms do not fit HP_FORMS' 16-bit offsets")
+    cols = list(zip(*index.values()))
+    seq = hard_sequence()
+    lines += [
+        f"#define HP_SLOTS {max(p.slots for p in hard.values())}",
+        f"#define HP_STATE_SLOTS {len(HARD_STATE)}",
+        f"#define HP_NOPS {len(ops)}",
+        f"#define HP_NPASS {len(passes)}",
+        f"#define HP_NFORMS {len(forms)}",
+        f"#define HP_NTERMS {len(terms)}",
+        f"#define HP_SEQ_LEN {len(seq)}",
+        f"#define HP_OUT {HARD_OUT}",
+        _c_words("uint32_t", "HP_OPS", ops),
+        _c_words("uint16_t", "HP_PASS", passes),
+        _c_words("uint16_t", "HP_FORMS", forms),
+        _c_words("uint32_t", "HP_TERMS", terms),
+        _c_words("uint16_t", "HP_PROG_OPS", cols[1]),
+        _c_words("uint16_t", "HP_PROG_PASS", cols[2]),
+        _c_words("uint16_t", "HP_PROG_FORMS", cols[3]),
+        _c_words("uint16_t", "HP_PROG_NPASSES", cols[4]),
+        _c_words("uint8_t", "HP_SEQ", [index[s][0] for s in seq]),
+    ]
+    for k, area in enumerate(HARD_AREAS):
+        lines.append(f"#define HP_AREA_{area.upper()} {12 * k}")
+    lines.append(f"#define RND_FORM_RECIP 0x{FORM_RECIP:016x}ull")
     return "\n".join(lines) + "\n"

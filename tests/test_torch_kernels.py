@@ -162,6 +162,18 @@ def test_miller_kernel_any_pair_count(pairs, cuda):
     assert_same(K.miller_loop_batch(*to_dev(args, cuda)), K.miller_loop_batch_plain(*args))
 
 
+@pytest.mark.cuda
+def test_hard_part_kernel_on_easy_part_outputs(cuda):
+    """The hard-part kernel on the easy-part outputs of four seeded Fq12
+    (cyclotomic, as on the main path) and on t = 1, whose hard part is 1:
+    equal to the plain version."""
+    one = torch.as_tensor(K.tw.FQ12_ONE.astype(np.int64))
+    ts = [K.final_exp_easy_part(rand_limbs(30 + s, (2, 3, 2))) for s in range(4)] + [one]
+    for t in ts:
+        assert_same(K.final_exp_hard_part(t.to(cuda)), K.final_exp_hard_part(t))
+    assert_same(K.final_exp_hard_part(one.to(cuda)), one)
+
+
 @pytest.mark.parametrize("name", ["fq_mont_mul", "final_exp_hard_part", "hash_to_g2",
                                   "final_exp_easy_part", "miller_loop_batch"])
 def test_cpu_tensors_take_the_plain_version(name):
