@@ -48,6 +48,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURES = os.path.join(ROOT, "bench_fixtures.npz")
 N_SETS, N_PKS = 64, 128          # gossip batch cap x target committee size
 FIELD_N = 1 << 20
+LATENCY_ITERS = 4096              # dependent products per chain in product_latency
 VERIFY_REPEATS = 3                # verifies of the valid batch; the median is reported
 PIPELINED = 8                     # submissions of the pipelined phase
 EF_BLS = os.path.join(ROOT, "tests", "ef", "vectors", "general", "phase0", "bls")
@@ -65,6 +66,14 @@ IMAD_PER_S = 64 * 132 * 1.98e9
 # One 381-bit Montgomery product, 12 x 32-bit limbs (CIOS): 2*12*12 + 12
 # 32x32->64-bit multiply-adds, two IMAD issues each (low and high word).
 IMAD_PER_FQ_MUL = 2 * (2 * 12 * 12 + 12)
+
+
+def rands(n: int) -> list[int]:
+    """The batches' random coefficients: 1, then seeded odd 64-bit values."""
+    import random
+
+    r = random.Random(int.from_bytes(b"chipsmok", "little"))
+    return [1] + [r.getrandbits(64) | 1 for _ in range(n - 1)]
 
 
 def emit(obj) -> None:
@@ -108,8 +117,11 @@ def ptxas_summary(log: str) -> list[dict]:
             current["registers"] = int(m.group(1))
             current["smem_bytes"] = int(smem.group(1)) if smem else 0
     for e in entries:
-        stack, st, ld = props.get(e["entry"], (0, 0, 0))
+        stack, st, ld = props.pop(e["entry"], (0, 0, 0))
         e.update(stack_bytes=stack, spill_store_bytes=st, spill_load_bytes=ld)
+    # the out-of-line device functions (team.cuh's interpreter among them)
+    entries += [{"function": name, "stack_bytes": s, "spill_store_bytes": st, "spill_load_bytes": ld}
+                for name, (s, st, ld) in sorted(props.items())]
     return entries
 
 
@@ -282,7 +294,131 @@ def bytes_needed(x) -> int:
     return total
 
 
+# ------------------------------------------------------------ product latency
+
+
+def product_latency(dev) -> dict:
+    """csrc/latency.cu's chains of LATENCY_ITERS dependent Montgomery
+    products (CUDA events, one launch each): us per product of one thread
+    on the CIOS product with 64-bit carries and on fq.cuh's carry-chain
+    fp_mul, the products per us of one warp running 32 chains, and us per
+    level of a 16-lane team (a product per lane, shared memory, __syncwarp);
+    and us per level of team.cuh's interpreter on G2 doublings (3 product
+    levels and an output pass each), called out of line and inlined, with
+    lane 0's cycles per level split into operand forms (of them: the loads
+    and limb sums), fp_mul, the slot store and the __syncwarp (clock64).
+    Each chain's result is held against the plain mont_mul chain."""
+    import torch
+
+    from lighthouse_tpu_torch.crypto.torchbls import kernels as K
+    from lighthouse_tpu_torch.crypto.torchbls import limbs as lb
+
+    lib = K.library().lib
+    gen = torch.Generator(device=dev).manual_seed(20261018)
+    xs = torch.randint(0, 1 << 16, (32, lb.NL), generator=gen, device=dev)
+    ys = torch.randint(0, 1 << 16, (32, lb.NL), generator=gen, device=dev)
+    xs[:, -1] = 0
+    ys[:, -1] = 0
+    out = torch.empty_like(xs)
+    res, got = {}, {}
+    for variant, name, lanes in ((0, "cios64_chain", 1), (1, "carry_chain", 1),
+                                 (2, "warp_32_chains", 32), (3, "team_level", 16)):
+        def launch(v=variant):
+            err = lib.lh_product_latency(v, LATENCY_ITERS, xs.data_ptr(), ys.data_ptr(),
+                                         out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise SystemExit(f"product_latency variant {v}: CUDA error {err}")
+        res[name] = cuda_ms(launch, 3) * 1e3 / LATENCY_ITERS
+        got[name] = out[:lanes].clone()
+    # G2 doublings through the team interpreter, out of line and inlined
+    from lighthouse_tpu_torch.crypto.torchbls import curve_ops as co
+    from lighthouse_tpu_torch.crypto.torchbls import team as tm
+
+    dbls = LATENCY_ITERS // 8
+    levels = dbls * tm.levels(tm.point_programs("g2")["dbl_AB"])
+    for variant, name in ((4, "program_noinline"), (5, "program_inline")):
+        def launch(v=variant):
+            err = lib.lh_product_latency(v, dbls, xs.data_ptr(), ys.data_ptr(), out.data_ptr(),
+                                         torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise SystemExit(f"product_latency variant {v}: CUDA error {err}")
+        res[name] = cuda_ms(launch, 3) * 1e3 / levels
+        got[name] = out[:6].clone()
+    # where a level's cycles go (lane 0 of the inlined loop, clock64)
+    err = lib.lh_product_latency(6, dbls, xs.data_ptr(), ys.data_ptr(), out.data_ptr(),
+                                 torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    if err:
+        raise SystemExit(f"product_latency variant 6: CUDA error {err}")
+    cyc = [int(c) for c in out.view(-1)[:6].tolist()]
+    split = {k: c / levels for k, c in zip(("forms", "fp_mul", "store", "syncwarp", "all",
+                                            "form_terms"), cyc)}
+    pt = (xs[0:2], xs[2:4], xs[4:6])
+    for _ in range(dbls):
+        pt = co.jac_double(pt, co.FQ2_OPS)
+    # the plain chains: x <- x y per lane; the team: x_l <- x_l x_(l+1 mod 16)
+    x, t = xs.clone(), xs[:16].clone()
+    for _ in range(LATENCY_ITERS):
+        x = lb.mont_mul(x, ys)
+        t = lb.mont_mul(t, torch.roll(t, -1, dims=0))
+    equal = {"cios64_chain": torch.equal(got["cios64_chain"], x[:1]),
+             "carry_chain": torch.equal(got["carry_chain"], x[:1]),
+             "warp_32_chains": torch.equal(got["warp_32_chains"], x),
+             "team_level": torch.equal(got["team_level"], t),
+             "program_noinline": torch.equal(got["program_noinline"], torch.cat(pt)),
+             "program_inline": torch.equal(got["program_inline"], torch.cat(pt))}
+    return {"us_per_product_cios64": res["cios64_chain"],
+            "us_per_product_carry_chain": res["carry_chain"],
+            "warp_products_per_us": 32 / res["warp_32_chains"],
+            "us_per_warp_step_32_chains": res["warp_32_chains"],
+            "us_per_team_level": res["team_level"],
+            "us_per_program_level": res["program_noinline"],
+            "us_per_program_level_inlined": res["program_inline"],
+            "cycles_per_program_level": split,
+            "iters": LATENCY_ITERS, "equal": equal}
+
+
+def prepare_profile_ms(prepare_in, reps: int = 3) -> dict:
+    """Device ms per kernel of kernels.stage_prepare from torch.profiler
+    (mean over reps calls; works on any version of the wrapper), by kernel
+    name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from lighthouse_tpu_torch.crypto.torchbls import kernels as K
+
+    K.stage_prepare(*prepare_in)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            K.stage_prepare(*prepare_in)
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        if ev.key.startswith("prepare_"):
+            dev_us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+            out[ev.key.split("(")[0]] = dev_us / 1e3 / reps
+    return out
+
+
 # ------------------------------------------------------------ phases
+
+
+def prepare_split_only() -> int:
+    """--prepare-split: only prepare's per-kernel device times from the
+    profiler at the gossip and sync buckets; this file copied into another
+    checkout measures that checkout's kernels."""
+    from lighthouse_tpu_torch.crypto.torchbls import backend as be
+    from lighthouse_tpu_torch.utils import fixtures
+
+    print(nvidia_smi(), flush=True)
+    groups = fixtures.load_groups(FIXTURES, n_att=N_SETS)
+    backend = be.TorchBackend(device="cuda")
+    for path, sets in (("gossip", groups["att"]), ("sync", groups["sync"])):
+        prepare_in, _us = backend.marshal(sets, rands(len(sets)))
+        emit({"phase": "prepare_split", "path": path, "bucket": list(prepare_in[0].shape[:2]),
+              "profiler_ms": prepare_profile_ms(prepare_in)})
+    return 0
 
 
 def main() -> int:
@@ -295,6 +431,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if "--prepare-split" in sys.argv[1:]:
+        return prepare_split_only()
     from lighthouse_tpu_torch.crypto import bls
     from lighthouse_tpu_torch.crypto.bls381 import hash_to_curve as ph2c
     from lighthouse_tpu_torch.crypto.bls381.constants import DST_POP, P
@@ -303,6 +441,7 @@ def main() -> int:
     from lighthouse_tpu_torch.crypto.torchbls import kernels as K
     from lighthouse_tpu_torch.crypto.torchbls import limbs as lb
     from lighthouse_tpu_torch.crypto.torchbls import rounds as RD
+    from lighthouse_tpu_torch.crypto.torchbls import team as TM
     from lighthouse_tpu_torch.crypto.torchbls import tower as tw
     from lighthouse_tpu_torch.utils import fixtures
 
@@ -321,17 +460,31 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(20261016)
     a = torch.randint(0, 1 << 16, (FIELD_N, lb.NL), generator=gen, device=dev)
     b = torch.randint(0, 1 << 16, (FIELD_N, lb.NL), generator=gen, device=dev)
-    a[:, -1] = 0                                       # < 2^368 < p
-    b[:, -1] = 0
+    a[:, -1] = torch.randint(0, 0x1A01, (FIELD_N,), generator=gen, device=dev)  # < p
+    b[:, -1] = torch.randint(0, 0x1A01, (FIELD_N,), generator=gen, device=dev)
+    # every pair of the edge operands: 0, 1, p - 1, p - 2, R mod p, R^2 mod
+    # p, (2^381 - k) mod p (inputs are fully reduced)
+    R_MONT = (1 << 384) % P
+    edges = [0, 1, P - 1, P - 2, R_MONT, R_MONT * R_MONT % P] + [((1 << 381) - k) % P
+                                                                  for k in (1, 2, 3)]
+    e = torch.as_tensor(np.stack([lb.pack(v) for v in edges]).astype(np.int64), device=dev)
+    ne = len(edges)
+    a = torch.cat([a, e.repeat_interleave(ne, dim=0)])
+    b = torch.cat([b, e.repeat(ne, 1)])
     got = K.fq_mont_mul(a, b)
     want = torch.cat([K.fq_mont_mul_plain(a[i:i + 65536], b[i:i + 65536])
-                      for i in range(0, FIELD_N, 65536)])
+                      for i in range(0, a.shape[0], 65536)])
     field_equal = torch.equal(got, want)
-    emit({"phase": "field", "n": FIELD_N, "equal": field_equal,
+    emit({"phase": "field", "n": FIELD_N, "edge_pairs": ne * ne, "equal": field_equal,
           "ms": cuda_ms(lambda: K.fq_mont_mul(a, b), 10)})
     if not field_equal:
         raise SystemExit("fq_mont_mul disagrees with the plain mont_mul")
     del a, b, got, want
+
+    latency = product_latency(dev)
+    emit({"phase": "product_latency", "device": smi, **latency})
+    if not all(latency["equal"].values()):
+        raise SystemExit(f"product_latency chains disagree with the plain chains: {latency['equal']}")
 
     # fixtures: 64 attestations x 128 keys, the 512-key sync aggregate
     t0 = time.perf_counter()
@@ -339,14 +492,6 @@ def main() -> int:
     att, sync = groups["att"], groups["sync"]
     if len(att) != N_SETS or max(len(s.signing_keys) for s in att) != N_PKS:
         raise SystemExit(f"fixture batch is not {N_SETS} x {N_PKS}")
-    rand_seed = int.from_bytes(b"chipsmok", "little")
-
-    def rands(n: int) -> list[int]:
-        import random
-
-        r = random.Random(rand_seed)
-        return [1] + [r.getrandbits(64) | 1 for _ in range(n - 1)]
-
     # the urgent path's one fixture key, message and signature
     z = np.load(FIXTURES)
     single = fixtures.signature_set(z["small_keys"][0], z["small_sigs"][0], z["small_msgs"][0])
@@ -382,6 +527,10 @@ def main() -> int:
         # the round kernels' own work beside the bound's: their Fq products,
         # the dependent product rounds of the per-pair chain and tree or of
         # the hard part's sequence, and their passes (a block barrier each)
+        # the team kernels' dependent levels: prepare's longest G2 chain (a
+        # live set's), h2c's per message
+        g2_levels = max(TM.chain_levels("g2", b) for b, on in zip(prepare_in[5].tolist(),
+                                                                   prepare_in[6].tolist()) if on)
         live, n_pairs = int((pairs[4] != 0).sum()), pairs[0].shape[0]
         own = {"miller_loop_product": {"kernel_fq_products": RD.miller_products(live, n_pairs),
                                        "product_rounds": RD.miller_rounds(n_pairs),
@@ -389,7 +538,9 @@ def main() -> int:
                "miller_loop_batch": {"kernel_fq_products": RD.miller_products(live, 1),
                                      "product_rounds": RD.miller_rounds(1),
                                      "passes": RD.miller_passes(1)},
-               "final_exp_hard_part": RD.hard_work()}
+               "final_exp_hard_part": RD.hard_work(),
+               "stage_prepare": {"g2_chain_levels": g2_levels},
+               "hash_to_g2": TM.h2c_levels()}
         rows = {}
         for name, (args, products, reps) in cases.items():
             wrapper, plain, _source, _replaces = K.KERNELS[name]
@@ -408,6 +559,10 @@ def main() -> int:
             emit({"phase": "kernel", "path": path, "bucket": [n, m], "name": name, **rows[name]})
             if not equal:
                 raise SystemExit(f"{name}: kernel disagrees with its plain version on the {path} path")
+        if path in ("gossip", "sync"):
+            # prepare's three launches, device ms from the profiler
+            emit({"phase": "prepare_split", "path": path, "bucket": [n, m],
+                  "profiler_ms": prepare_profile_ms(prepare_in)})
         return rows
 
     checks = {"gossip": check_kernels("gossip", att), "sync": check_kernels("sync", sync),
@@ -607,7 +762,8 @@ def main() -> int:
             "max_abs_err": g["max_abs_err"], "ms": g["ms"], "plain_ms": g["plain_ms"],
             "bound_ms": g["bound_ms"], "bound_by": g["bound_by"], "library_ms": None,
             "equal": g["equal"], "fq_products": g["fq_products"],
-            **{k: g[k] for k in ("kernel_fq_products", "product_rounds", "passes") if k in g},
+            **{k: g[k] for k in ("kernel_fq_products", "product_rounds", "passes", "g2_chain_levels",
+                                 "program_levels", "register_levels") if k in g},
             "launches_by_path": {path: launches[path][name] for path in launches},
             "sync": checks["sync"][name], "urgent": checks["urgent"][name],
         }

@@ -6,8 +6,9 @@
 // the kernel boundary. R is 2^384 in both layouts, so the kernels and the
 // plain versions agree bit for bit.
 //
-// Multiplication is CIOS Montgomery with 64-bit products: 12 x 12 32-bit
-// multiply-adds plus the interleaved reduction, ~300 integer instructions.
+// Multiplication is CIOS Montgomery over 32-bit words on PTX carry chains
+// (mad.lo.cc / madc.hi.cc): 12 x 12 multiply-adds plus the interleaved
+// reduction, each as a low and a high word, ~600 integer instructions.
 // The constants (p, -p^-1 mod 2^32, R mod p, R^2 mod p, the Frobenius
 // coefficients) come from the generated bls_consts.cuh, written at build
 // time from the package's Python tables (kernels.py).
@@ -19,6 +20,60 @@
 struct fp {
   uint32_t v[12];
 };
+
+// Carry-chain primitives: one PTX instruction each, kept in program order
+// (asm volatile), so the carry flag set by one is read by the next.
+static __device__ __forceinline__ uint32_t add_cc(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("add.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+static __device__ __forceinline__ uint32_t addc_cc(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("addc.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+static __device__ __forceinline__ uint32_t addc(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("addc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+static __device__ __forceinline__ uint32_t sub_cc(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("sub.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+static __device__ __forceinline__ uint32_t subc_cc(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("subc.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+static __device__ __forceinline__ uint32_t subc(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("subc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+// lo/hi word of a * b, plus c, plus the carry (madc) or not (mad)
+static __device__ __forceinline__ uint32_t mad_lo_cc(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t r;
+  asm volatile("mad.lo.cc.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
+  return r;
+}
+static __device__ __forceinline__ uint32_t madc_lo_cc(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t r;
+  asm volatile("madc.lo.cc.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
+  return r;
+}
+static __device__ __forceinline__ uint32_t madc_hi_cc(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t r;
+  asm volatile("madc.hi.cc.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
+  return r;
+}
+static __device__ __forceinline__ uint32_t madc_hi(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t r;
+  asm volatile("madc.hi.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
+  return r;
+}
 
 static __device__ __forceinline__ void fp_load(fp &r, const int64_t *src) {
 #pragma unroll
@@ -51,51 +106,36 @@ static __device__ __forceinline__ bool fp_is_zero(const fp &a) {
   return acc == 0;
 }
 
-// r = t mod p for t < 2p given as 12 limbs plus a top limb
+// r = t mod p for t < 2p given as 12 words plus a top word (0 or 1): one
+// borrow chain of t - p, then a select
 static __device__ __forceinline__ void fp_reduce_once(fp &r, const uint32_t *t, uint32_t top) {
   uint32_t d[12];
-  uint32_t borrow = 0;
+  d[0] = sub_cc(t[0], FP_P[0]);
 #pragma unroll
-  for (int i = 0; i < 12; i++) {
-    uint64_t s = (uint64_t)t[i] - FP_P[i] - borrow;
-    d[i] = (uint32_t)s;
-    borrow = (uint32_t)(s >> 32) & 1u;
-  }
-  bool ge = top != 0 || borrow == 0;   // t >= p
+  for (int i = 1; i < 12; i++) d[i] = subc_cc(t[i], FP_P[i]);
+  const bool lt = subc(top, 0) == 0xFFFFFFFFu;   // t < p
 #pragma unroll
-  for (int i = 0; i < 12; i++) r.v[i] = ge ? d[i] : t[i];
+  for (int i = 0; i < 12; i++) r.v[i] = lt ? t[i] : d[i];
 }
 
 static __device__ __forceinline__ void fp_add(fp &r, const fp &a, const fp &b) {
   uint32_t t[12];
-  uint64_t c = 0;
+  t[0] = add_cc(a.v[0], b.v[0]);
 #pragma unroll
-  for (int i = 0; i < 12; i++) {
-    c += (uint64_t)a.v[i] + b.v[i];
-    t[i] = (uint32_t)c;
-    c >>= 32;
-  }
-  fp_reduce_once(r, t, (uint32_t)c);
+  for (int i = 1; i < 12; i++) t[i] = addc_cc(a.v[i], b.v[i]);
+  fp_reduce_once(r, t, addc(0, 0));
 }
 
 static __device__ __forceinline__ void fp_sub(fp &r, const fp &a, const fp &b) {
   uint32_t t[12];
-  uint32_t borrow = 0;
+  t[0] = sub_cc(a.v[0], b.v[0]);
 #pragma unroll
-  for (int i = 0; i < 12; i++) {
-    uint64_t s = (uint64_t)a.v[i] - b.v[i] - borrow;
-    t[i] = (uint32_t)s;
-    borrow = (uint32_t)(s >> 32) & 1u;
-  }
-  // a < b: add p back (the carry out cancels the borrow)
-  uint32_t mask = 0u - borrow;
-  uint64_t c = 0;
+  for (int i = 1; i < 12; i++) t[i] = subc_cc(a.v[i], b.v[i]);
+  const uint32_t mask = subc(0, 0);   // a < b: add p back (the carry out cancels the borrow)
+  r.v[0] = add_cc(t[0], FP_P[0] & mask);
 #pragma unroll
-  for (int i = 0; i < 12; i++) {
-    c += (uint64_t)t[i] + (FP_P[i] & mask);
-    r.v[i] = (uint32_t)c;
-    c >>= 32;
-  }
+  for (int i = 1; i < 11; i++) r.v[i] = addc_cc(t[i], FP_P[i] & mask);
+  r.v[11] = addc(t[11], FP_P[11] & mask);
 }
 
 static __device__ __forceinline__ void fp_neg(fp &r, const fp &a) {
@@ -104,56 +144,106 @@ static __device__ __forceinline__ void fp_neg(fp &r, const fp &a) {
   fp_sub(r, z, a);
 }
 
-// k * a for the small constants of the point formulas
 static __device__ __forceinline__ void fp_dbl(fp &r, const fp &a) { fp_add(r, a, a); }
 
-static __device__ __forceinline__ void fp_mul3(fp &r, const fp &a) {
-  fp t;
-  fp_add(t, a, a);
-  fp_add(r, t, a);
-}
-
-static __device__ __forceinline__ void fp_mul8(fp &r, const fp &a) {
-  fp t;
-  fp_add(t, a, a);
-  fp_add(t, t, t);
-  fp_add(r, t, t);
-}
-
-// Montgomery product a * b * 2^-384 mod p (CIOS, one final subtraction).
-static __device__ __forceinline__ void fp_mul(fp &r, const fp &a, const fp &b) {
-  uint32_t t[13];
+// E += w[0, 2, .., 10] * k: the even-indexed words' products fill the
+// consecutive words of E (lo of w[j] k at j, hi at j + 1), one carry chain;
+// the carry out is left in the flag.
+static __device__ __forceinline__ void fp_cmad_even(uint32_t *E, const uint32_t *w, uint32_t k) {
+  E[0] = mad_lo_cc(w[0], k, E[0]);
+  E[1] = madc_hi_cc(w[0], k, E[1]);
 #pragma unroll
-  for (int j = 0; j < 13; j++) t[j] = 0;
-#pragma unroll
-  for (int i = 0; i < 12; i++) {
-    uint64_t c = 0;
-#pragma unroll
-    for (int j = 0; j < 12; j++) {
-      uint64_t s = (uint64_t)a.v[j] * b.v[i] + t[j] + c;
-      t[j] = (uint32_t)s;
-      c = s >> 32;
-    }
-    uint64_t s = (uint64_t)t[12] + c;
-    t[12] = (uint32_t)s;
-    uint32_t t13 = (uint32_t)(s >> 32);
-    uint32_t m = t[0] * FP_INV;
-    s = (uint64_t)m * FP_P[0] + t[0];
-    c = s >> 32;
-#pragma unroll
-    for (int j = 1; j < 12; j++) {
-      s = (uint64_t)m * FP_P[j] + t[j] + c;
-      t[j - 1] = (uint32_t)s;
-      c = s >> 32;
-    }
-    s = (uint64_t)t[12] + c;
-    t[11] = (uint32_t)s;
-    t[12] = t13 + (uint32_t)(s >> 32);
+  for (int j = 2; j < 12; j += 2) {
+    E[j] = madc_lo_cc(w[j], k, E[j]);
+    E[j + 1] = madc_hi_cc(w[j], k, E[j + 1]);
   }
-  fp_reduce_once(r, t, t[12]);
+}
+
+// One row of the product, b_i = bi, and its reduction step. On entry E
+// holds the words of weight 0..11 and O those of weight -1..10 (O[0] is the
+// word the last reduction zeroed). On exit O holds weights 1..12 and E
+// weights 0..11 with E[0] == 0, so the caller swaps the two for the next
+// row. The accumulator stays below 2p between rows and below 2^415 inside
+// one (p < 2^381), so the carries this drops are zero.
+static __device__ __forceinline__ void fp_mul_row(uint32_t *E, uint32_t *O, const uint32_t *a,
+                                                  uint32_t bi, bool first) {
+  if (first) {
+#pragma unroll
+    for (int j = 0; j < 12; j += 2) {
+      E[j] = a[j] * bi;
+      E[j + 1] = __umulhi(a[j], bi);
+      O[j] = a[j + 1] * bi;
+      O[j + 1] = __umulhi(a[j + 1], bi);
+    }
+  } else {
+    // fold O[1] into E[0] and shift O down two words while adding the odd
+    // words' products (weights 1..12), on one carry chain
+    E[0] = add_cc(E[0], O[1]);
+#pragma unroll
+    for (int j = 0; j < 10; j += 2) {
+      O[j] = madc_lo_cc(a[j + 1], bi, O[j + 2]);
+      O[j + 1] = madc_hi_cc(a[j + 1], bi, O[j + 3]);
+    }
+    O[10] = madc_lo_cc(a[11], bi, 0);
+    O[11] = madc_hi(a[11], bi, 0);
+    fp_cmad_even(E, a, bi);
+    O[11] = addc(O[11], 0);
+  }
+  const uint32_t m = E[0] * FP_INV;
+  O[0] = mad_lo_cc(FP_P[1], m, O[0]);
+  O[1] = madc_hi_cc(FP_P[1], m, O[1]);
+#pragma unroll
+  for (int j = 2; j < 10; j += 2) {
+    O[j] = madc_lo_cc(FP_P[j + 1], m, O[j]);
+    O[j + 1] = madc_hi_cc(FP_P[j + 1], m, O[j + 1]);
+  }
+  O[10] = madc_lo_cc(FP_P[11], m, O[10]);
+  O[11] = madc_hi(FP_P[11], m, O[11]);
+  uint32_t pe[12];
+#pragma unroll
+  for (int j = 0; j < 12; j++) pe[j] = FP_P[j];
+  fp_cmad_even(E, pe, m);
+  O[11] = addc(O[11], 0);
+}
+
+// Montgomery product a * b * 2^-384 mod p: CIOS over 32-bit words with PTX
+// carry chains, the products of the even- and the odd-indexed words of a
+// in two accumulators (so no carry waits on a high word), then one
+// conditional subtraction. The same value as any Montgomery product.
+static __device__ __forceinline__ void fp_mul_final(fp &r, const uint32_t *X, const uint32_t *Y) {
+  // the result: X at weights 0..11 plus Y shifted down one word
+  uint32_t t[12], d[12];
+  t[0] = add_cc(X[0], Y[1]);
+#pragma unroll
+  for (int k = 1; k < 11; k++) t[k] = addc_cc(X[k], Y[k + 1]);
+  t[11] = addc(X[11], 0);
+  d[0] = sub_cc(t[0], FP_P[0]);
+#pragma unroll
+  for (int k = 1; k < 12; k++) d[k] = subc_cc(t[k], FP_P[k]);
+  const uint32_t lt = subc(0, 0);   // all ones when t < p
+#pragma unroll
+  for (int k = 0; k < 12; k++) r.v[k] = lt ? t[k] : d[k];
+}
+
+static __device__ __forceinline__ void fp_mul(fp &r, const fp &a, const fp &b) {
+  uint32_t X[12], Y[12];
+#pragma unroll
+  for (int i = 0; i < 12; i += 2) {
+    fp_mul_row(X, Y, a.v, b.v[i], i == 0);
+    fp_mul_row(Y, X, a.v, b.v[i + 1], false);
+  }
+  fp_mul_final(r, X, Y);
 }
 
 static __device__ __forceinline__ void fp_sqr(fp &r, const fp &a) { fp_mul(r, a, a); }
+
+// standard form -> Montgomery form: the product by R^2
+static __device__ __forceinline__ void fp_to_mont(fp &r, const fp &a) {
+  fp r2;
+#pragma unroll
+  for (int i = 0; i < 12; i++) r2.v[i] = FP_R2[i];
+  fp_mul(r, a, r2);
+}
 
 // a^(p-2) = a^-1 (0 maps to 0): square-and-multiply over the bits of p - 2
 static __device__ __noinline__ void fp_inv(fp &r, const fp &a) {

@@ -9,241 +9,242 @@
 // of the two mapped points and psi-based cofactor clearing. Output is the
 // Jacobian point (X, Y, Z) of each message.
 //
-// Bound on this card: integer multiply-adds (~7400 Fq products per
-// message, in two dependent chains: one SWU map per u-value, then the
-// cofactor clearing's two 64-bit scalar multiplications), not bytes (192 B
-// in, 288 B out per message). The simple design gives each message a block
-// of two threads: thread j maps u_j (the two maps run side by side), the
-// two points meet in shared memory, and thread 0 adds them and clears the
-// cofactor. Blocks are small so the messages spread over the SMs.
+// Bound on this card: the latency of dependent Fq products (~7400 per
+// message in two chains, one SWU map per u-value, then the cofactor
+// clearing's two 64-bit scalar multiplications), not the card's multiply
+// rate and not bytes (192 B in, 288 B out per message). So a message gets
+// one warp, and every step runs on a team of its lanes (team.cuh): each
+// level's independent Fq products one per lane, a __syncwarp between levels.
+// Lanes 0-15 map u_0 and lanes 16-31 map u_1, in lockstep (the same
+// programs of team.TSW on two states): swu1, swu2, the table of t^1..t^15;
+// sqrt_ratio's 758-bit exponent over 4-bit digits as a chain of Fq2
+// squarings (a level of 2 products) and table products (3) in the lanes'
+// registers, the results shared by warp shuffles (team_fp2_sqr,
+// team_fp2_mul); the eight candidates and their checks, y2x2 and the
+// isogeny. Then the warp as one team adds the
+// two points and clears the cofactor with the G2 point programs (team.TG2:
+// a doubling 3 levels, an addition 5, psi 1, each plus its output pass).
+// The branches between programs are uniform over a team: xd == 0 selects
+// Z A, sqrt_ratio keeps the first matching candidate in h2c_ops' order
+// (is_qr when it is one of the first four), the is_qr selects, the sgn0
+// sign, jac_add's cases.
 //
 // Bit-exactness: where the result is a point, the formulas are those of
-// h2c_ops and curve_ops term for term (the isogeny's X, Y, Z, jac_add,
+// h2c_ops and curve_ops (the isogeny's X, Y, Z, jac_add,
 // clear_cofactor_g2's order of doublings, adds, psi maps and negations,
 // scalar_mul_static's double-then-add-on-a-set-bit from the identity);
 // where the result is a field element, any exact method gives the same
-// fully reduced value (the a^E exponentiation here uses a 4-bit window,
-// as the plain version does). sqrt_ratio checks all eight candidates and
-// keeps the first match in H2C_CANDS order; xd == 0 selects Z * A. The
-// constants come from the generated bls_consts.cuh.
-#include "curve.cuh"
+// fully reduced value (the a^E exponentiation uses a 4-bit window, as the
+// plain version does). tests/test_torch_team.py runs this sequence on the
+// same tables against the plain version.
+#include "team.cuh"
 
-static __device__ __forceinline__ void fp2_const(fp2 &r, const uint32_t c[2][12]) {
-#pragma unroll
-  for (int i = 0; i < 12; i++) {
-    r.c0.v[i] = c[0][i];
-    r.c1.v[i] = c[1][i];
+// the cofactor clearing's state: TG2's slots, then four stored points
+#define CL_R (TG2_SLOTS)
+#define CL_T1 (TG2_SLOTS + 6)
+#define CL_T2 (TG2_SLOTS + 12)
+#define CL_T3 (TG2_SLOTS + 18)
+#define CL_SLOTS (TG2_SLOTS + 24)
+
+// T_d, d = 1..15, are consecutive Fq2 slots from T1
+#define SW_T(d) (TSW_S_T10 + 2 * ((d) - 1))
+
+// One u-value (in the u slots, Montgomery) -> its point on E2 in the q
+// slots: h2c_ops.sswu_projective, then iso_map_jacobian.
+static __device__ __forceinline__ void map_to_curve(const TSW_tables &T, fp *S, const team &tm) {
+  T.run(S, TSW_SWU1, tm);
+  if (slot_is_zero(S, TSW_S_XD0) && slot_is_zero(S, TSW_S_XD1)) {   // xd == 0: Z A
+    team_sync(tm);
+    team_copy(S, TSW_S_XD0, S, TSW_S_ZA0, 2, tm);
   }
-}
-
-static __device__ __forceinline__ bool fp2_eq(const fp2 &a, const fp2 &b) {
-  uint32_t d = 0;
-#pragma unroll
-  for (int i = 0; i < 12; i++) d |= (a.c0.v[i] ^ b.c0.v[i]) | (a.c1.v[i] ^ b.c1.v[i]);
-  return d == 0;
-}
-
-// RFC 9380 sgn0 for Fq2, on the standard form (the product by the integer 1)
-static __device__ __noinline__ uint32_t fp2_sgn0(const fp2 &a) {
-  fp one, s0, s1;
-  fp_set_zero(one);
-  one.v[0] = 1;
-  fp_mul(s0, a.c0, one);
-  fp_mul(s1, a.c1, one);
-  const uint32_t z0 = fp_is_zero(s0) ? 1u : 0u;
-  return (s0.v[0] & 1u) | (z0 & s1.v[0] & 1u);
-}
-
-// a^E with E = (q - 9) / 16: a table of a^0..a^15, then per 4-bit digit
-// after the first four squarings and a table product where it is nonzero
-static __device__ __noinline__ void fp2_pow_e(fp2 &r, const fp2 &a) {
-  fp2 table[16];
-  fp2_set_one(table[0]);
-  table[1] = a;
-  for (int j = 2; j < 16; j++) fp2_mul(table[j], table[j / 2], table[j - j / 2]);
-  const int nd = (H2C_E_BITS + 3) / 4;
-  fp2 acc = table[(H2C_E[(4 * (nd - 1)) >> 5] >> ((4 * (nd - 1)) & 31)) & 15u];
-  for (int d = nd - 2; d >= 0; d--) {
-    const uint32_t digit = (H2C_E[(4 * d) >> 5] >> ((4 * d) & 31)) & 15u;
-    for (int k = 0; k < 4; k++) fp2_sqr(acc, acc);
-    if (digit) fp2_mul(acc, acc, table[digit]);
-  }
-  r = acc;
-}
-
-// sqrt_ratio (q = 9 mod 16): s = u v^7 (u v^15)^E, y = s * c for the
-// first candidate c with y^2 v == u (QR, the first four) or y^2 v == Z u
-// (non-QR, the last four). Returns is_qr.
-static __device__ __noinline__ bool fp2_sqrt_ratio(fp2 &y, const fp2 &u, const fp2 &v) {
-  fp2 v2, v4, v8, v7, v15, s, t, zu;
-  fp2_sqr(v2, v);
-  fp2_sqr(v4, v2);
-  fp2_sqr(v8, v4);
-  fp2_mul(t, v2, v);
-  fp2_mul(v7, v4, t);
-  fp2_mul(v15, v8, v7);
-  fp2_mul(t, u, v15);
-  fp2_pow_e(t, t);
-  fp2_mul(s, u, v7);
-  fp2_mul(s, s, t);
-  fp2_const(t, H2C_Z);
-  fp2_mul(zu, t, u);
-  bool found = false, is_qr = false;
-  fp2_set_zero(y);
-  for (int c = 0; c < 8; c++) {
-    fp2 ys, chk;
-    fp2_const(t, H2C_CANDS[c]);
-    fp2_mul(ys, s, t);
-    fp2_sqr(chk, ys);
-    fp2_mul(chk, chk, v);
-    const bool ok = fp2_eq(chk, c < 4 ? u : zu);
-    if (ok && !found) y = ys;
-    if (ok && c < 4) is_qr = true;
-    found = found || ok;
-  }
-  return is_qr;
-}
-
-// One u-value (Montgomery) -> its point on E2, Jacobian: the simplified SWU
-// map to E2' (h2c_ops.sswu_projective), then the 3-isogeny with all four
-// polynomials on the monomials [xd^3, xn xd^2, xn^2 xd, xn^3]
-// (h2c_ops.iso_map_jacobian; xd^2 and xd^3 are the map's own).
-static __device__ __noinline__ void map_to_curve(jac<fp2> &q, const fp2 &u) {
-  fp2 Z, A, B, u2, tv1, tv2, x1n, x2n, xd, xd2, xd3, gx1, t, y1, y2, xn, y;
-  fp2_const(Z, H2C_Z);
-  fp2_const(A, H2C_A);
-  fp2_const(B, H2C_B);
-  fp2_sqr(u2, u);
-  fp2_mul(tv1, Z, u2);
-  fp2_sqr(tv2, tv1);
-  fp2_add(tv2, tv2, tv1);
-  fp2_set_one(t);
-  fp2_add(t, tv2, t);
-  fp2_mul(x1n, B, t);
-  fp2_const(t, H2C_NEG_A);
-  fp2_mul(xd, t, tv2);
-  if (fp2_is_zero(xd)) fp2_const(xd, H2C_ZA);
-  fp2_sqr(xd2, xd);
-  fp2_mul(xd3, xd2, xd);
-  fp2_sqr(gx1, x1n);
-  fp2_mul(t, A, xd2);
-  fp2_add(gx1, gx1, t);
-  fp2_mul(gx1, gx1, x1n);
-  fp2_mul(t, B, xd3);
-  fp2_add(gx1, gx1, t);
-  const bool is_qr = fp2_sqrt_ratio(y1, gx1, xd3);
-  fp2_mul(x2n, tv1, x1n);
-  fp2_mul(t, u2, u);
-  fp2_mul(t, Z, t);
-  fp2_mul(y2, t, y1);
-  xn = is_qr ? x1n : x2n;
-  y = is_qr ? y1 : y2;
-  if (fp2_sgn0(y) != fp2_sgn0(u)) fp2_neg(y, y);
-
-  fp2 xn2, m[4], sums[4];
-  fp2_sqr(xn2, xn);
-  m[0] = xd3;
-  fp2_mul(m[1], xn, xd2);
-  fp2_mul(m[2], xn2, xd);
-  fp2_mul(m[3], xn2, xn);
-  for (int k = 0; k < 4; k++) {     // x_num, x_den, y_num, y_den, all times xd^3
-    fp2_set_zero(sums[k]);
-    for (int j = 0; j < 4; j++) {
-      fp2_const(t, H2C_ISO_K[k][j]);
-      fp2_mul(t, t, m[j]);
-      fp2_add(sums[k], sums[k], t);
+  T.run(S, TSW_SWU2, tm);
+  T.run(S, TSW_TABLE, tm);
+  // e = t^E over the window digits, in registers: the first digit's table
+  // entry, then per digit four squarings and, for a digit d > 0, the
+  // product by t^d (h2c_ops.fq2_sqrt_ratio's pow_static)
+  fp a0, a1;
+  slot_load(a0, S, SW_T(SW_E_DIGITS[0]));
+  slot_load(a1, S, SW_T(SW_E_DIGITS[0]) + 1);
+  for (int k = 1; k < SW_E_NDIGITS; k++) {
+#pragma unroll 1
+    for (int s = 0; s < 4; s++) team_fp2_sqr(a0, a1, tm);
+    const int d = SW_E_DIGITS[k];
+    if (d) {
+      fp b0, b1;
+      slot_load(b0, S, SW_T(d));
+      slot_load(b1, S, SW_T(d) + 1);
+      team_fp2_mul(a0, a1, b0, b1, tm);
     }
   }
-  fp2 yon, xod2, yod2;
-  fp2_mul(yon, y, sums[2]);
-  fp2_mul(q.z, sums[1], sums[3]);
-  fp2_sqr(yod2, sums[3]);
-  fp2_mul(t, sums[0], sums[1]);
-  fp2_mul(q.x, t, yod2);
-  fp2_sqr(xod2, sums[1]);
-  fp2_mul(t, yon, xod2);
-  fp2_mul(yod2, sums[1], yod2);
-  fp2_mul(q.y, t, yod2);
-}
-
-// psi: (c_x conj(X), c_y conj(Y), conj(Z)) (curve_ops.psi_jac)
-static __device__ __noinline__ void psi_jac(jac<fp2> &r, const jac<fp2> &p) {
-  fp2 c, t;
-  fp2_conj(t, p.x);
-  fp2_const(c, PSI_CX);
-  fp2_mul(r.x, t, c);
-  fp2_conj(t, p.y);
-  fp2_const(c, PSI_CY);
-  fp2_mul(r.y, t, c);
-  fp2_conj(r.z, p.z);
-}
-
-// x p = -(|x| p): per bit of |x| (64, MSB first) a doubling and, on a set
-// bit, an add, from the identity (curve_ops.scalar_mul_static), then the
-// negation
-static __device__ __noinline__ void xmul(jac<fp2> &r, const jac<fp2> &p) {
-  jac<fp2> acc;
-  jac_set_identity(acc);
-  for (int b = 63; b >= 0; b--) {
-    jac_double(acc, acc);
-    if ((X_ABS >> b) & 1ull) jac_add(acc, acc, p);
+  if (tm.lane < 2) slot_store(S, TSW_S_E0 + tm.lane, tm.lane ? a1 : a0);
+  team_sync(tm);
+  T.run(S, TSW_CANDS, tm);
+  // lane c < 8: does candidate c check (y^2 v == u for the first four,
+  // == Z u for the last four)
+  bool ok = false;
+  if (tm.lane < 8) {
+    const int ref = tm.lane < 4 ? TSW_S_GX10 : TSW_S_ZU0;
+    ok = slots_equal(S, TSW_S_CHK00 + 2 * tm.lane, ref) &&
+         slots_equal(S, TSW_S_CHK00 + 2 * tm.lane + 1, ref + 1);
   }
-  fp2_neg(acc.y, acc.y);
-  r = acc;
+  const unsigned shift = __ffs(tm.mask) - 1;
+  const unsigned found = (__ballot_sync(tm.mask, ok) >> shift) & 0xFFu;
+  const bool is_qr = (found & 0xFu) != 0;
+  if (tm.lane < 2) {           // y1: the first match (zero if none)
+    fp y;
+    if (found)
+      slot_load(y, S, TSW_S_YS00 + 2 * (__ffs(found) - 1) + tm.lane);
+    else
+      fp_set_zero(y);
+    slot_store(S, TSW_S_Y10 + tm.lane, y);
+  }
+  team_sync(tm);
+  T.run(S, TSW_Y2X2, tm);
+  if (tm.lane < 4) {           // xn = is_qr ? x1n : x2n, ysg = is_qr ? y1 : y2
+    const int c = tm.lane & 1;
+    fp x;
+    if (tm.lane < 2) {
+      slot_load(x, S, (is_qr ? TSW_S_X1N0 : TSW_S_X2N0) + c);
+      slot_store(S, TSW_S_XN0 + c, x);
+    } else {
+      slot_load(x, S, (is_qr ? TSW_S_Y10 : TSW_S_Y20) + c);
+      slot_store(S, TSW_S_YSG0 + c, x);
+    }
+  }
+  team_sync(tm);
+  // sgn0 of ysg and of u on the standard form (the product by the integer
+  // 1): lanes 0..3 take ysg0, ysg1, u0, u1
+  bool odd = false, zero = false;
+  if (tm.lane < 4) {
+    fp v, one;
+    fp_set_zero(one);
+    one.v[0] = 1;
+    slot_load(v, S, (tm.lane < 2 ? TSW_S_YSG0 : TSW_S_U0) + (tm.lane & 1));
+    fp_mul(v, v, one);
+    odd = v.v[0] & 1u;
+    zero = fp_is_zero(v);
+  }
+  const unsigned par = (__ballot_sync(tm.mask, odd) >> shift) & 0xFu;
+  const unsigned zer = (__ballot_sync(tm.mask, zero) >> shift) & 0xFu;
+  const unsigned sgn_y = (par & 1u) | (zer & (par >> 1) & 1u);
+  const unsigned sgn_u = ((par >> 2) & 1u) | ((zer >> 2) & (par >> 3) & 1u);
+  if (sgn_y != sgn_u && tm.lane < 2) {
+    fp y;
+    slot_load(y, S, TSW_S_YSG0 + tm.lane);
+    fp_neg(y, y);
+    slot_store(S, TSW_S_YSG0 + tm.lane, y);
+  }
+  team_sync(tm);
+  T.run(S, TSW_ISO, tm);
 }
 
-static __device__ __forceinline__ void jac_neg(jac<fp2> &r, const jac<fp2> &p) {
-  r = p;
-  fp2_neg(r.y, p.y);
+// a G2 point into slots dst of D from slots src of Src, Y negated if neg
+static __device__ __forceinline__ void team_put(fp *D, int dst, const fp *Src, int src, bool neg,
+                                                const team &tm) {
+  for (int k = tm.lane; k < 6; k += tm.nl) {
+    fp x;
+    slot_load(x, Src, src + k);
+    if (neg && (k == 2 || k == 3)) fp_neg(x, x);
+    slot_store(D, dst + k, x);
+  }
+  team_sync(tm);
 }
 
-// h_eff p = [x^2 - x - 1] p + [x - 1] psi(p) + psi^2(2 p)
-// (curve_ops.clear_cofactor_g2, in its order)
-static __device__ __noinline__ void clear_cofactor(jac<fp2> &r, const jac<fp2> &p) {
-  jac<fp2> t1, t2, t3, np;
-  xmul(t1, p);                      // x p
-  psi_jac(t2, p);                   // psi(p)
-  jac_double(t3, p);
-  psi_jac(t3, t3);
-  psi_jac(t3, t3);                  // psi^2(2 p)
-  jac_neg(np, t2);
-  jac_add(t3, t3, np);
-  jac_add(t2, t1, t2);
-  xmul(t2, t2);                     // x^2 p + x psi(p)
-  jac_add(t3, t3, t2);
-  jac_neg(np, t1);
-  jac_add(t3, t3, np);
-  jac_neg(np, p);
-  jac_add(r, t3, np);
+// x p = -(|x| p) for p in the slots src, into the slots dst: per bit of |x|
+// (64, MSB first) a doubling and, on a set bit, an add, from the identity
+// (curve_ops.scalar_mul_static), then the negation
+static __device__ __forceinline__ void team_xmul(const TG2_tables &T, fp *C, int src, int dst,
+                                                 const team &tm) {
+  team_put(C, 12, C, src, false, tm);
+  team_set_identity<6>(C, 0, tm);
+  int a = 0;
+  for (int b = 63; b >= 0; b--) {
+    a = team_dbl<6>(T, C, a, tm);
+    if ((X_ABS >> b) & 1ull) a = team_add<6>(T, C, a, tm);
+  }
+  team_put(C, dst, C, 6 * a, true, tm);
 }
 
-__global__ void h2c_kernel(const int64_t *us, int64_t *X, int64_t *Y, int64_t *Z) {
-  __shared__ jac<fp2> q[2];
-  const int i = blockIdx.x, j = threadIdx.x;
-  fp r2;
+// slots d = slots p1 + (-)slots p2 (curve_ops.jac_add)
+static __device__ __forceinline__ void team_add_into(const TG2_tables &T, fp *C, int d, int p1,
+                                                     int p2, bool neg2, const team &tm) {
+  team_put(C, 0, C, p1, false, tm);
+  team_put(C, 12, C, p2, neg2, tm);
+  const int a = team_add<6>(T, C, 0, tm);
+  team_put(C, d, C, 6 * a, false, tm);
+}
+
+// h_eff r = [x^2 - x - 1] r + [x - 1] psi(r) + psi^2(2 r) for r in CL_R,
+// in curve_ops.clear_cofactor_g2's order; the result in CL_T3
+static __device__ __forceinline__ void clear_cofactor(const TG2_tables &T, fp *C,
+                                                      const team &tm) {
+  team_xmul(T, C, CL_R, CL_T1, tm);                 // t1 = x r
+  team_put(C, 0, C, CL_R, false, tm);
+  T.run(C, TG2_PSI_AB, tm);
+  team_put(C, CL_T2, C, 6, false, tm);              // t2 = psi(r)
+  team_put(C, 0, C, CL_R, false, tm);
+  team_dbl<6>(T, C, 0, tm);
+  T.run(C, TG2_PSI_BA, tm);
+  T.run(C, TG2_PSI_AB, tm);
+  team_put(C, CL_T3, C, 6, false, tm);              // t3 = psi^2(2 r)
+  team_add_into(T, C, CL_T3, CL_T3, CL_T2, true, tm);   // t3 - t2
+  team_add_into(T, C, CL_T2, CL_T1, CL_T2, false, tm);  // t1 + t2
+  team_xmul(T, C, CL_T2, CL_T2, tm);                // x (t1 + t2)
+  team_add_into(T, C, CL_T3, CL_T3, CL_T2, false, tm);
+  team_add_into(T, C, CL_T3, CL_T3, CL_T1, true, tm);
+  team_add_into(T, C, CL_T3, CL_T3, CL_R, true, tm);
+}
+
+__global__ void __launch_bounds__(32) h2c_kernel(const int64_t *us, int64_t *X, int64_t *Y,
+                                                 int64_t *Z) {
+  __shared__ TSW_tables TS;
+  __shared__ TG2_tables T2;
+  __shared__ __align__(16) fp SW[2 * TSW_SLOTS];
+  __shared__ __align__(16) fp C[CL_SLOTS];
+  const int i = blockIdx.x, l = threadIdx.x, j = l >> 4;
+  TS.stage(l, 32);
+  T2.stage(l, 32);
+  // team j maps u_j: the constants, u_j in Montgomery form
+  const team tm{l & 15, 16, 0xFFFFu << (16 * j)};
+  fp *S = SW + j * TSW_SLOTS;
+  for (int k = tm.lane; k < SW_NCONSTS; k += tm.nl) {
+    fp c;
 #pragma unroll
-  for (int k = 0; k < 12; k++) r2.v[k] = FP_R2[k];
-  fp2 u;
-  fp2_load(u, us + (2 * i + j) * 48);   // us[i, j]: standard form
-  fp_mul(u.c0, u.c0, r2);
-  fp_mul(u.c1, u.c1, r2);
-  jac<fp2> qj;
-  map_to_curve(qj, u);
-  q[j] = qj;
-  __syncthreads();
-  if (j == 0) {
-    jac<fp2> r;
-    jac_add(r, q[0], q[1]);
-    clear_cofactor(r, r);
-    fp2_store(X + 48 * i, r.x);
-    fp2_store(Y + 48 * i, r.y);
-    fp2_store(Z + 48 * i, r.z);
+    for (int w = 0; w < 12; w++) c.v[w] = SW_CONST_WORDS[12 * k + w];
+    slot_store(S, k, c);
+  }
+  if (tm.lane < 2) {
+    fp c;
+    fp_load(c, us + (2 * i + j) * 48 + 24 * tm.lane);   // us[i, j]: standard form
+    fp_to_mont(c, c);
+    slot_store(S, TSW_S_U0 + tm.lane, c);
+  }
+  if (l < 4) {                 // psi's coefficients for the clearing
+    fp c;
+#pragma unroll
+    for (int w = 0; w < 12; w++) c.v[w] = l < 2 ? PSI_CX[l][w] : PSI_CY[l - 2][w];
+    slot_store(C, TG2_S_CX0 + l, c);
+  }
+  __syncwarp();
+  map_to_curve(TS, S, tm);
+  __syncwarp();
+  // the warp: r = q0 + q1, then the cofactor clearing
+  const team w{l, 32, 0xFFFFFFFFu};
+  team_put(C, 0, SW, TSW_S_QX0, false, w);
+  team_put(C, 12, SW + TSW_SLOTS, TSW_S_QX0, false, w);
+  const int a = team_add<6>(T2, C, 0, w);
+  team_put(C, CL_R, C, 6 * a, false, w);
+  clear_cofactor(T2, C, w);
+  if (l < 6) {
+    fp c;
+    slot_load(c, C, CL_T3 + l);
+    fp_store((l < 2 ? X : l < 4 ? Y : Z) + 48 * i + 24 * (l & 1), c);
   }
 }
 
 extern "C" int lh_hash_to_g2(const void *us, int n, void *X, void *Y, void *Z, void *stream) {
   if (n > 0)
-    h2c_kernel<<<n, 2, 0, (cudaStream_t)stream>>>((const int64_t *)us, (int64_t *)X,
-                                                 (int64_t *)Y, (int64_t *)Z);
+    h2c_kernel<<<n, 32, 0, (cudaStream_t)stream>>>((const int64_t *)us, (int64_t *)X, (int64_t *)Y,
+                                                  (int64_t *)Z);
   return (int)cudaGetLastError();
 }

@@ -12,7 +12,7 @@
 // simple design gives each Z element its own thread and its own Fq2
 // inversion (the TPU shared one batched chain across lanes instead), so
 // the 2n+1 chains run side by side. No size gate (see prepare.cu).
-#include "curve.cuh"
+#include "tower.cuh"
 
 __global__ void pairs_kernel(const int64_t *zx, const int64_t *zy, const int64_t *zz,
                              const int64_t *hx, const int64_t *hy, const int64_t *hz,

@@ -14,10 +14,11 @@
 // program (run_form_program, hard_part.cu) a and b index forms, short sums
 // of slots with small integer coefficients that the reading thread
 // evaluates (form_load): a product multiplies two forms, a COPY writes one,
-// so the sums between rounds take no pass of their own.
+// so the sums between rounds take no pass of their own. The kernels include
+// the generated tables they run (round_programs.cuh, team_programs.cuh)
+// themselves; form_load's RND_FORM_RECIP comes with bls_consts.cuh.
 #pragma once
 #include "fq.cuh"
-#include "round_programs.cuh"
 
 #define RND_MUL 0u
 #define RND_ADD 1u
@@ -42,56 +43,127 @@ static __device__ __forceinline__ void slot_store(fp *S, uint32_t k, const fp &x
 
 // Form f of a form program: the terms T[F[f]], T[F[f] + 1], ... up to the
 // one flagged RND_TERM_LAST, each slot | flag | (int16) coefficient << 16;
-// its value sum_i c_i S[slot_i] mod p, fully reduced. The sum is taken in
-// signed 64-bit limbs, lifted by n p (n the negative coefficients' sizes)
-// to v in [0, RND_FORM_BOUND p), and reduced by q = floor(v / p) or one
-// less from v's top bits (rounds.FORM_RECIP), then at most one p.
+// its value sum_i c_i S[slot_i] mod p. form_terms sums |c_i| times each
+// word of the slot, complemented (2^32 - 1 - w) where c_i < 0, in unsigned
+// 64-bit limbs (one multiply-add per limb; n is the sum of the negative
+// coefficients' sizes), so the form's value plus n p is
+// v = sum_j (acc_j + n (p_j - 2^32 + 1)) 2^(32 j), in [0, RND_FORM_BOUND p).
+// form_reduce takes v to 13 words (the limbs' low words plus their signed
+// high words one word up, on carry chains), subtracts q p for
+// q = floor(v / p) or one less from v's top bits (rounds.FORM_RECIP), and
+// then, for a fully reduced value, at most one p. A product's second
+// operand may stay below 2p (fq.cuh's fp_mul takes any b < 2^384), so it
+// skips that last subtraction. A form that is one slot with coefficient 1
+// is that slot's value.
 #define RND_TERM_LAST 0x8000u
 
-static __device__ __forceinline__ void form_load(fp &r, const fp *S, const uint16_t *F,
-                                                 const uint32_t *T, uint32_t f) {
+// true when the form is one slot with coefficient 1 (acc then holds it)
+static __device__ __forceinline__ bool form_terms(uint64_t *acc, int32_t &n, const fp *S,
+                                                  const uint16_t *F, const uint32_t *T,
+                                                  uint32_t f) {
   uint32_t k = F[f], e = T[k];
-  if ((e & 0xFFFF8000u) == (0x10000u | RND_TERM_LAST)) {  // one slot, coefficient 1
-    slot_load(r, S, e & 1023u);
-    return;
-  }
-  int64_t acc[12];
-#pragma unroll
-  for (int j = 0; j < 12; j++) acc[j] = 0;
-  int32_t n = 0;
-  for (;;) {
-    e = T[k++];
-    const int32_t c = (int32_t)e >> 16;
+  n = 0;
+  if ((e & 0xFFFF8000u) == (0x10000u | RND_TERM_LAST)) {
     fp x;
     slot_load(x, S, e & 1023u);
 #pragma unroll
-    for (int j = 0; j < 12; j++) acc[j] += (int64_t)c * x.v[j];
+    for (int j = 0; j < 12; j++) acc[j] = x.v[j];
+    return true;
+  }
+#pragma unroll
+  for (int j = 0; j < 12; j++) acc[j] = 0;
+  for (;;) {
+    e = T[k++];
+    const int32_t c = (int32_t)e >> 16;
+    const uint32_t m = c < 0 ? 0xFFFFFFFFu : 0u, cu = c < 0 ? -c : c;
+    fp x;
+    slot_load(x, S, e & 1023u);
+#pragma unroll
+    for (int j = 0; j < 12; j++) acc[j] += (uint64_t)cu * (x.v[j] ^ m);
     n += c < 0 ? -c : 0;
     if (e & RND_TERM_LAST) break;
   }
-  uint32_t v[13];
-  int64_t carry = 0;
+  return false;
+}
+
+template <bool FULL>
+static __device__ __forceinline__ void form_reduce(fp &r, const uint64_t *acc, int32_t n) {
+  // v = sum_j s_j 2^(32 j), s_j = acc_j + n (p_j - 2^32 + 1) signed: the
+  // low words, plus the high words (two's complement) one word up, minus
+  // 2^(32 (j + 2)) for each negative s_j, all mod 2^416 (v < 2^391)
+  uint32_t L[12], H[12], B[12], v[13];
 #pragma unroll
-  for (int j = 0; j < 12; j++) {  // the running carry may be negative below the top
-    carry += acc[j] + (int64_t)n * FP_P[j];
-    v[j] = (uint32_t)carry;
-    carry >>= 32;
+  for (int j = 0; j < 12; j++) {
+    const int64_t s = (int64_t)acc[j] + (int64_t)n * ((int64_t)FP_P[j] - 0xFFFFFFFFll);
+    L[j] = (uint32_t)s;
+    H[j] = (uint32_t)((uint64_t)s >> 32);
+    B[j] = s < 0 ? 1u : 0u;
   }
-  v[12] = (uint32_t)carry;
+  v[0] = L[0];
+  v[1] = add_cc(L[1], H[0]);
+#pragma unroll
+  for (int j = 2; j < 12; j++) v[j] = addc_cc(L[j], H[j - 1]);
+  v[12] = addc(H[11], 0);
+  v[2] = sub_cc(v[2], B[0]);
+#pragma unroll
+  for (int j = 3; j < 12; j++) v[j] = subc_cc(v[j], B[j - 2]);
+  v[12] = subc(v[12], B[10]);
   const uint64_t hi = ((uint64_t)v[12] << 54) | ((uint64_t)v[11] << 22) | (v[10] >> 10);
   const uint32_t q = (uint32_t)__umul64hi(hi, RND_FORM_RECIP);
-  uint64_t m = 0;
-  uint32_t borrow = 0;
+  // v -= q p: the low words of q p_j, then the high words one word up
+  uint32_t lo[12], hq[12];
 #pragma unroll
-  for (int j = 0; j < 12; j++) {  // v -= q p
-    m += (uint64_t)q * FP_P[j];
-    const uint64_t s = (uint64_t)v[j] - (uint32_t)m - borrow;
-    v[j] = (uint32_t)s;
-    borrow = (uint32_t)(s >> 63);
-    m >>= 32;
+  for (int j = 0; j < 12; j++) {
+    lo[j] = q * FP_P[j];
+    hq[j] = __umulhi(q, FP_P[j]);
   }
-  v[12] -= (uint32_t)m + borrow;
-  fp_reduce_once(r, v, v[12]);
+  v[0] = sub_cc(v[0], lo[0]);
+#pragma unroll
+  for (int j = 1; j < 12; j++) v[j] = subc_cc(v[j], lo[j]);
+  v[12] = subc(v[12], 0);
+  v[1] = sub_cc(v[1], hq[0]);
+#pragma unroll
+  for (int j = 2; j < 12; j++) v[j] = subc_cc(v[j], hq[j - 1]);
+  if (FULL) {
+    v[12] = subc(v[12], hq[11]);
+    fp_reduce_once(r, v, v[12]);
+  } else {                       // v < 2p < 2^382: the top word is zero
+#pragma unroll
+    for (int j = 0; j < 12; j++) r.v[j] = v[j];
+  }
+}
+
+static __device__ __forceinline__ void form_load(fp &r, const fp *S, const uint16_t *F,
+                                                 const uint32_t *T, uint32_t f) {
+  uint64_t acc[12];
+  int32_t n;
+  if (form_terms(acc, n, S, F, T, f)) {
+#pragma unroll
+    for (int j = 0; j < 12; j++) r.v[j] = (uint32_t)acc[j];
+  } else {
+    form_reduce<true>(r, acc, n);
+  }
+}
+
+// both operands of a product: x fully reduced, y below 2p
+static __device__ __forceinline__ void form_load2(fp &x, fp &y, const fp *S, const uint16_t *F,
+                                                  const uint32_t *T, uint32_t a, uint32_t b) {
+  uint64_t ax[12], ay[12];
+  int32_t nx, ny;
+  const bool dx = form_terms(ax, nx, S, F, T, a);
+  const bool dy = form_terms(ay, ny, S, F, T, b);
+  if (dx) {
+#pragma unroll
+    for (int j = 0; j < 12; j++) x.v[j] = (uint32_t)ax[j];
+  } else {
+    form_reduce<true>(x, ax, nx);
+  }
+  if (dy) {
+#pragma unroll
+    for (int j = 0; j < 12; j++) y.v[j] = (uint32_t)ay[j];
+  } else {
+    form_reduce<false>(y, ay, ny);
+  }
 }
 
 template <bool FORMS>
@@ -100,12 +172,12 @@ static __device__ __forceinline__ void round_op(fp *S, uint32_t w, const uint16_
   const uint32_t kind = w >> 30, o = (w >> 20) & 1023u, a = (w >> 10) & 1023u, b = w & 1023u;
   fp x, y, r;
   if constexpr (FORMS) {  // a product of two forms, or (COPY) a form's value
-    form_load(x, S, F, T, a);
     if (kind == RND_MUL) {
-      form_load(y, S, F, T, b);
+      form_load2(x, y, S, F, T, a, b);
       fp_mul(r, x, y);
       slot_store(S, o, r);
     } else {
+      form_load(x, S, F, T, a);
       slot_store(S, o, x);
     }
     return;

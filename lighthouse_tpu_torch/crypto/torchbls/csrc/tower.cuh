@@ -68,18 +68,6 @@ static __device__ __forceinline__ void fp2_conj(fp2 &r, const fp2 &a) {
   fp_neg(r.c1, a.c1);
 }
 
-static __device__ __forceinline__ void fp2_dbl(fp2 &r, const fp2 &a) { fp2_add(r, a, a); }
-
-static __device__ __forceinline__ void fp2_mul3(fp2 &r, const fp2 &a) {
-  fp_mul3(r.c0, a.c0);
-  fp_mul3(r.c1, a.c1);
-}
-
-static __device__ __forceinline__ void fp2_mul8(fp2 &r, const fp2 &a) {
-  fp_mul8(r.c0, a.c0);
-  fp_mul8(r.c1, a.c1);
-}
-
 // (a0 + a1 u)(1 + u) = (a0 - a1) + (a0 + a1) u
 static __device__ __forceinline__ void fp2_mul_by_xi(fp2 &r, const fp2 &a) {
   fp t;
@@ -107,12 +95,6 @@ static __device__ __noinline__ void fp2_sqr(fp2 &r, const fp2 &a) {
   fp_mul(c1, a.c0, a.c1);
   fp_mul(r.c0, s, d);
   fp_dbl(r.c1, c1);
-}
-
-// Fq2 times an Fq element
-static __device__ __forceinline__ void fp2_mul_fp(fp2 &r, const fp2 &a, const fp &k) {
-  fp_mul(r.c0, a.c0, k);
-  fp_mul(r.c1, a.c1, k);
 }
 
 // 1 / (a0 + a1 u) = (a0 - a1 u) / (a0^2 + a1^2); 0 maps to 0

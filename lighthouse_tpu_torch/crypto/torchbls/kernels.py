@@ -20,6 +20,8 @@ Kernel, source, and the TPU kernel (or XLA function) it replaces:
   final_exp_easy_part  csrc/easy_part.cu    pairing_ops.py:296 final_exponentiation
                                             (its easy part, kept in XLA there)
 (pallas_ops.py and pairing_ops.py are under lighthouse_tpu/crypto/jaxbls/.)
+csrc/latency.cu (lh_product_latency) times chains of Fq products and team
+levels for chip_smoke.py's product_latency phase; no path launches it.
 """
 
 from __future__ import annotations
@@ -39,12 +41,13 @@ from . import h2c_ops as h2
 from . import limbs as lb
 from . import pairing_ops as po
 from . import rounds
+from . import team
 from . import tower as tw
 
 NL = lb.NL
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("fq_mont_mul.cu", "prepare.cu", "pairs.cu", "miller.cu", "hard_part.cu", "h2c.cu",
-           "easy_part.cu")
+           "easy_part.cu", "latency.cu")
 
 
 # ------------------------------------------------------------ build + load
@@ -78,30 +81,22 @@ def consts_header() -> str:
     """bls_consts.cuh: the field and Frobenius constants of the kernels,
     from the same tables as the plain versions."""
     inv32 = (-pow(P, -1, 1 << 32)) % (1 << 32)
-    e_words = [(h2._E >> (32 * i)) & 0xFFFFFFFF for i in range((h2._E.bit_length() + 31) // 32)]
     lines = [
         "// generated by lighthouse_tpu_torch.crypto.torchbls.kernels.consts_header",
         "#pragma once",
         "#include <stdint.h>",
         f"#define FP_INV 0x{inv32:08x}u",
         f"#define X_ABS 0x{X_ABS:016x}ull",
+        # rounds.cuh's form_load (the same definition as round_programs.cuh's)
+        f"#define RND_FORM_RECIP 0x{rounds.FORM_RECIP:016x}ull",
         _c_array("FP_P", _words32(lb.N_HOST)),
         _c_array("FP_PM2", _words32(lb.pack(P - 2))),
         _c_array("FP_ONE", _words32(lb.ONE_MONT)),
         _c_array("FP_R2", _words32(lb.R2_HOST)),
-        # hash-to-G2 (h2c.cu), from h2c_ops' and curve_ops' tables
-        _c_table("H2C_Z", h2._ISO_Z),
-        _c_table("H2C_A", h2._ISO_A),
-        _c_table("H2C_B", h2._ISO_B),
-        _c_table("H2C_NEG_A", h2._NEG_A),
-        _c_table("H2C_ZA", h2._ZA),
-        _c_table("H2C_CANDS", h2._CAND_CONSTS),
-        _c_table("H2C_ISO_K", h2._ISO_K),
+        # psi's coefficients for h2c.cu's cofactor clearing (curve_ops'
+        # tables; the SWU map's constants are in team_programs.cuh)
         _c_table("PSI_CX", co._PSI_CX),
         _c_table("PSI_CY", co._PSI_CY),
-        f"#define H2C_E_BITS {h2._E.bit_length()}",
-        f"static __constant__ uint32_t H2C_E[{len(e_words)}] = "
-        f"{{{', '.join(f'0x{w:08x}u' for w in e_words)}}};",
     ]
     for k in (1, 2):
         coeff = tw.FROB12_COEFF[k].reshape(6, 2, NL)
@@ -119,7 +114,8 @@ def library() -> torchcfg.KernelLibrary:
     """Build (or reuse) and load the kernel library, declaring every entry."""
     kl = torchcfg.build_kernels(
         "lh_bls", [CSRC / s for s in SOURCES], CSRC,
-        {"bls_consts.cuh": consts_header(), "round_programs.cuh": rounds.header()},
+        {"bls_consts.cuh": consts_header(), "round_programs.cuh": rounds.header(),
+         "team_programs.cuh": team.header()},
     )
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     sigs = {
@@ -132,6 +128,7 @@ def library() -> torchcfg.KernelLibrary:
         "lh_final_exp_hard_part": ([vp, vp, vp], i32),
         "lh_hash_to_g2": ([vp, i32, vp, vp, vp, vp], i32),
         "lh_final_exp_easy_part": ([vp, vp, vp], i32),
+        "lh_product_latency": ([i32, i32, vp, vp, vp, vp], i32),
     }
     for fname, (argtypes, restype) in sigs.items():
         fn = getattr(kl.lib, fname)

@@ -174,6 +174,50 @@ def test_hard_part_kernel_on_easy_part_outputs(cuda):
     assert_same(K.final_exp_hard_part(one.to(cuda)), one)
 
 
+@pytest.mark.cuda
+def test_fq_mont_mul_edge_operands_on_the_card(cuda):
+    """fq.cuh's carry-chain fp_mul on every pair of the edge operands 0, 1,
+    p - 1, p - 2, R mod p, R^2 mod p and (2^381 - k) mod p: equal to the
+    plain mont_mul."""
+    r = (1 << 384) % P
+    edges = [0, 1, P - 1, P - 2, r, r * r % P] + [((1 << 381) - k) % P for k in (1, 2, 3)]
+    e = torch.as_tensor(np.stack([TL.pack(v) for v in edges]).astype(np.int64))
+    a, b = e.repeat_interleave(len(edges), dim=0), e.repeat(len(edges), 1)
+    assert_same(K.fq_mont_mul(a.to(cuda), b.to(cuda)), TL.mont_mul(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 3, 64, 65])
+def test_hash_to_g2_at_warp_and_grid_edges(n, cuda):
+    """hash_to_g2 (a warp per message, two teams of 16 lanes) at n = 1, 3,
+    64 and 65, lane 0 u = 0 (the xd == 0 case), seeded u-values of both
+    is_qr classes, against the plain version on the card."""
+    (us,) = h2c_args(n, seed=20 + n)
+    us_dev = us.to(cuda)
+    got = K.hash_to_g2(us_dev)
+    torch.cuda.synchronize()
+    assert_same(got, K.hash_to_g2_plain(us_dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m", [(1, 1), (4, 512), (64, 128)])
+def test_stage_prepare_at_the_path_buckets(n, m, cuda):
+    """stage_prepare on teams at (1, 1), the sync bucket (4, 512) and the
+    gossip bucket (64, 128), with a padded last set (n > 1), a set whose
+    pubkeys are all masked (an aggregate at infinity: the bad flag) and
+    two equal pubkeys in set 0 (the tree's doubling case)."""
+    args = list(prepare_args(n, m, seed=30 + n))
+    if m > 1:
+        args[0][0, 1], args[1][0, 1] = args[0][0, 0], args[1][0, 0]
+        args[2][0, :2] = 1
+    if n > 2:
+        args[2][1] = 0
+    dev_args = to_dev(tuple(args), cuda)
+    got = K.stage_prepare(*dev_args)
+    torch.cuda.synchronize()
+    assert_same(got, K.stage_prepare_plain(*dev_args))
+
+
 @pytest.mark.parametrize("name", ["fq_mont_mul", "final_exp_hard_part", "hash_to_g2",
                                   "final_exp_easy_part", "miller_loop_batch"])
 def test_cpu_tensors_take_the_plain_version(name):
@@ -198,10 +242,7 @@ def test_consts_header_carries_the_field_constants():
              .replace("u", "").split(",")]
     assert sum(w << (32 * i) for i, w in enumerate(words)) == P
     assert text.count("FROB1[6][2][12]") == text.count("FROB2[6][2][12]") == 1
-    assert "H2C_CANDS[8][2][12]" in text and "H2C_ISO_K[4][4][2][12]" in text
-    e_words = [int(w, 16) for w in re.search(r"H2C_E\[24\] = \{([^}]*)\}", text).group(1)
-               .replace("u", "").split(",")]
-    assert sum(w << (32 * i) for i, w in enumerate(e_words)) == (P * P - 9) // 16
+    assert "PSI_CX[2][12]" in text and "PSI_CY[2][12]" in text
 
 
 KERNEL_NAMES = ["final_exp_easy_part", "final_exp_hard_part", "fq_mont_mul", "hash_to_g2",
