@@ -9,14 +9,18 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
   1. device and build: nvidia-smi name and power limit, torch/CUDA
      versions, the nvcc build of csrc/*.cu and ptxas's registers/spills;
   2. field self-test: the fq_mont_mul kernel against the plain mont_mul on
-     2^20 seeded random elements (torch.equal);
+     2^20 seeded random elements and every pair of edge operands
+     (torch.equal); product_latency: csrc/latency.cu's chains of dependent
+     Fq products and team levels, each held against its plain chain;
   3. each kernel against its plain version on the card (torch.equal), on
      the real stage data of the 64 x 128 gossip batch, the 512-key sync
      aggregate and the one-key urgent verify, with its time (CUDA events),
      the plain version's time and its bound (miller_loop_batch, phase 1 of
-     the Miller kernel, per pair; the Miller and hard-part kernels also
-     with their own Fq products, dependent product rounds and passes, and
-     the per-round and per-pass costs solved from the two); then
+     the Miller kernel, per pair); a schedule line per bucket with the
+     counts that are not measured (the Fq products of each bound, the
+     Miller and hard-part kernels' own products, dependent product rounds
+     and passes, the team kernels' dependent levels), and the per-round and
+     per-pass costs solved from the two round kernels; then
      hash_to_g2 on a batch of edge lanes (u = 0, the EF vectors' messages,
      seeded random u-values with is_qr true and false);
   4. the paths through the public API, set_backend("torch"), each driven
@@ -31,8 +35,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
      batches fill the window), aggregate_verify (the 64 sets as one
      distinct-message AggregateVerify; a flipped message byte must fail);
   5. the 15 EF BLS vectors through the port's API;
-  6. per-stage times of the gossip batch, and hash-to-G2 of one message
-     against the pure-Python RFC 9380 map.
+  6. per-stage times of the gossip batch, hash-to-G2 of one message
+     against the pure-Python RFC 9380 map, and prepare's three launches'
+     device times from torch.profiler at the gossip and sync buckets.
 The last two lines are the kernel table and the device line.
 """
 
@@ -66,14 +71,6 @@ IMAD_PER_S = 64 * 132 * 1.98e9
 # One 381-bit Montgomery product, 12 x 32-bit limbs (CIOS): 2*12*12 + 12
 # 32x32->64-bit multiply-adds, two IMAD issues each (low and high word).
 IMAD_PER_FQ_MUL = 2 * (2 * 12 * 12 + 12)
-
-
-def rands(n: int) -> list[int]:
-    """The batches' random coefficients: 1, then seeded odd 64-bit values."""
-    import random
-
-    r = random.Random(int.from_bytes(b"chipsmok", "little"))
-    return [1] + [r.getrandbits(64) | 1 for _ in range(n - 1)]
 
 
 def emit(obj) -> None:
@@ -304,16 +301,16 @@ def product_latency(dev) -> dict:
     fp_mul, the products per us of one warp running 32 chains, and us per
     level of a 16-lane team (a product per lane, shared memory, __syncwarp);
     and us per level of team.cuh's interpreter on G2 doublings (3 product
-    levels and an output pass each), called out of line and inlined, with
-    lane 0's cycles per level split into operand forms (of them: the loads
-    and limb sums), fp_mul, the slot store and the __syncwarp (clock64).
+    levels and an output pass each), with lane 0's cycles per level split
+    by rounds.cuh's cycle hook into the operand forms' loads and sums and
+    their reductions, fp_mul, the slot store and the __syncwarp (clock64).
     Each chain's result is held against the plain mont_mul chain."""
     import torch
 
     from lighthouse_tpu_torch.crypto.torchbls import kernels as K
     from lighthouse_tpu_torch.crypto.torchbls import limbs as lb
 
-    lib = K.library().lib
+    lib = K.latency_library().lib
     gen = torch.Generator(device=dev).manual_seed(20261018)
     xs = torch.randint(0, 1 << 16, (32, lb.NL), generator=gen, device=dev)
     ys = torch.randint(0, 1 << 16, (32, lb.NL), generator=gen, device=dev)
@@ -330,29 +327,29 @@ def product_latency(dev) -> dict:
                 raise SystemExit(f"product_latency variant {v}: CUDA error {err}")
         res[name] = cuda_ms(launch, 3) * 1e3 / LATENCY_ITERS
         got[name] = out[:lanes].clone()
-    # G2 doublings through the team interpreter, out of line and inlined
+    # G2 doublings through the team interpreter
     from lighthouse_tpu_torch.crypto.torchbls import curve_ops as co
     from lighthouse_tpu_torch.crypto.torchbls import team as tm
 
     dbls = LATENCY_ITERS // 8
     levels = dbls * tm.levels(tm.point_programs("g2")["dbl_AB"])
-    for variant, name in ((4, "program_noinline"), (5, "program_inline")):
-        def launch(v=variant):
-            err = lib.lh_product_latency(v, dbls, xs.data_ptr(), ys.data_ptr(), out.data_ptr(),
-                                         torch.cuda.current_stream().cuda_stream)
-            if err:
-                raise SystemExit(f"product_latency variant {v}: CUDA error {err}")
-        res[name] = cuda_ms(launch, 3) * 1e3 / levels
-        got[name] = out[:6].clone()
-    # where a level's cycles go (lane 0 of the inlined loop, clock64)
-    err = lib.lh_product_latency(6, dbls, xs.data_ptr(), ys.data_ptr(), out.data_ptr(),
+
+    def launch_program():
+        err = lib.lh_product_latency(4, dbls, xs.data_ptr(), ys.data_ptr(), out.data_ptr(),
+                                     torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise SystemExit(f"product_latency variant 4: CUDA error {err}")
+    res["program"] = cuda_ms(launch_program, 3) * 1e3 / levels
+    got["program"] = out[:6].clone()
+    # where a level's cycles go (lane 0, clock64 at the cycle hook's marks)
+    err = lib.lh_product_latency(5, dbls, xs.data_ptr(), ys.data_ptr(), out.data_ptr(),
                                  torch.cuda.current_stream().cuda_stream)
     torch.cuda.synchronize()
     if err:
-        raise SystemExit(f"product_latency variant 6: CUDA error {err}")
+        raise SystemExit(f"product_latency variant 5: CUDA error {err}")
     cyc = [int(c) for c in out.view(-1)[:6].tolist()]
-    split = {k: c / levels for k, c in zip(("forms", "fp_mul", "store", "syncwarp", "all",
-                                            "form_terms"), cyc)}
+    split = {k: c / levels for k, c in zip(("form_terms", "form_reduce", "fp_mul", "store",
+                                            "syncwarp", "all"), cyc)}
     pt = (xs[0:2], xs[2:4], xs[4:6])
     for _ in range(dbls):
         pt = co.jac_double(pt, co.FQ2_OPS)
@@ -365,23 +362,20 @@ def product_latency(dev) -> dict:
              "carry_chain": torch.equal(got["carry_chain"], x[:1]),
              "warp_32_chains": torch.equal(got["warp_32_chains"], x),
              "team_level": torch.equal(got["team_level"], t),
-             "program_noinline": torch.equal(got["program_noinline"], torch.cat(pt)),
-             "program_inline": torch.equal(got["program_inline"], torch.cat(pt))}
+             "program": torch.equal(got["program"], torch.cat(pt))}
     return {"us_per_product_cios64": res["cios64_chain"],
             "us_per_product_carry_chain": res["carry_chain"],
             "warp_products_per_us": 32 / res["warp_32_chains"],
             "us_per_warp_step_32_chains": res["warp_32_chains"],
             "us_per_team_level": res["team_level"],
-            "us_per_program_level": res["program_noinline"],
-            "us_per_program_level_inlined": res["program_inline"],
+            "us_per_program_level": res["program"],
             "cycles_per_program_level": split,
             "iters": LATENCY_ITERS, "equal": equal}
 
 
 def prepare_profile_ms(prepare_in, reps: int = 3) -> dict:
     """Device ms per kernel of kernels.stage_prepare from torch.profiler
-    (mean over reps calls; works on any version of the wrapper), by kernel
-    name."""
+    (mean over reps calls), by kernel name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -404,23 +398,6 @@ def prepare_profile_ms(prepare_in, reps: int = 3) -> dict:
 # ------------------------------------------------------------ phases
 
 
-def prepare_split_only() -> int:
-    """--prepare-split: only prepare's per-kernel device times from the
-    profiler at the gossip and sync buckets; this file copied into another
-    checkout measures that checkout's kernels."""
-    from lighthouse_tpu_torch.crypto.torchbls import backend as be
-    from lighthouse_tpu_torch.utils import fixtures
-
-    print(nvidia_smi(), flush=True)
-    groups = fixtures.load_groups(FIXTURES, n_att=N_SETS)
-    backend = be.TorchBackend(device="cuda")
-    for path, sets in (("gossip", groups["att"]), ("sync", groups["sync"])):
-        prepare_in, _us = backend.marshal(sets, rands(len(sets)))
-        emit({"phase": "prepare_split", "path": path, "bucket": list(prepare_in[0].shape[:2]),
-              "profiler_ms": prepare_profile_ms(prepare_in)})
-    return 0
-
-
 def main() -> int:
     if not os.path.exists(FIXTURES) or not os.path.isdir(os.path.join(ROOT, "lighthouse_tpu_torch")):
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
@@ -431,8 +408,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    if "--prepare-split" in sys.argv[1:]:
-        return prepare_split_only()
     from lighthouse_tpu_torch.crypto import bls
     from lighthouse_tpu_torch.crypto.bls381 import hash_to_curve as ph2c
     from lighthouse_tpu_torch.crypto.bls381.constants import DST_POP, P
@@ -452,9 +427,17 @@ def main() -> int:
           "count": torch.cuda.device_count(), "python": sys.version.split()[0],
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
-    kl = K.library()
+    # the path's library and latency.cu's, their nvcc runs all started together
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(2) as pool:
+        kl_future = pool.submit(K.library)
+        lat = K.latency_library()
+        kl = kl_future.result()
     emit({"phase": "build", "nvcc_seconds": round(kl.build_seconds, 3),
-          "library": os.path.relpath(str(kl.path), ROOT), "ptxas": ptxas_summary(kl.ptxas_log)})
+          "library": os.path.relpath(str(kl.path), ROOT), "ptxas": ptxas_summary(kl.ptxas_log),
+          "latency_library": os.path.relpath(str(lat.path), ROOT),
+          "latency_ptxas": ptxas_summary(lat.ptxas_log)})
 
     # 2. field self-test ---------------------------------------------------
     gen = torch.Generator(device=dev).manual_seed(20261016)
@@ -492,6 +475,14 @@ def main() -> int:
     att, sync = groups["att"], groups["sync"]
     if len(att) != N_SETS or max(len(s.signing_keys) for s in att) != N_PKS:
         raise SystemExit(f"fixture batch is not {N_SETS} x {N_PKS}")
+    rand_seed = int.from_bytes(b"chipsmok", "little")
+
+    def rands(n: int) -> list[int]:
+        import random
+
+        r = random.Random(rand_seed)
+        return [1] + [r.getrandbits(64) | 1 for _ in range(n - 1)]
+
     # the urgent path's one fixture key, message and signature
     z = np.load(FIXTURES)
     single = fixtures.signature_set(z["small_keys"][0], z["small_sigs"][0], z["small_msgs"][0])
@@ -504,7 +495,9 @@ def main() -> int:
     # gossip shapes (64 messages, 65 pairs)
     backend = be.TorchBackend(device="cuda")
 
-    def check_kernels(path: str, sets) -> dict:
+    def check_kernels(path: str, sets) -> tuple[dict, dict]:
+        """Each kernel's row (measured, with its bound) and its schedule
+        (counted from the inputs and the programs, not measured)."""
         prepare_in, us = backend.marshal(sets, rands(len(sets)))
         n, m = prepare_in[0].shape[:2]
         z_pk, sig_acc, _bad = K.stage_prepare(*prepare_in)
@@ -524,11 +517,11 @@ def main() -> int:
             "final_exp_easy_part": ((f,), fq_products_easy_part(), 5),
             "final_exp_hard_part": ((t_easy,), fq_products_hard_part(), 3),
         }
-        # the round kernels' own work beside the bound's: their Fq products,
-        # the dependent product rounds of the per-pair chain and tree or of
-        # the hard part's sequence, and their passes (a block barrier each)
-        # the team kernels' dependent levels: prepare's longest G2 chain (a
-        # live set's), h2c's per message
+        # the schedule: each kernel's Fq products (the bound's work); the
+        # round kernels' own Fq products, the dependent product rounds of
+        # the per-pair chain and tree or of the hard part's sequence, and
+        # their passes (a block barrier each); the team kernels' dependent
+        # levels: prepare's longest G2 chain (a live set's), h2c's per message
         g2_levels = max(TM.chain_levels("g2", b) for b, on in zip(prepare_in[5].tolist(),
                                                                    prepare_in[6].tolist()) if on)
         live, n_pairs = int((pairs[4] != 0).sum()), pairs[0].shape[0]
@@ -554,19 +547,17 @@ def main() -> int:
             ms = cuda_ms(lambda: wrapper(*args), reps)
             bms, by = bound_ms(products, bytes_needed(args) + bytes_needed(kout))
             rows[name] = {"max_abs_err": err, "equal": equal, "ms": ms, "plain_ms": plain_ms,
-                          "bound_ms": bms, "bound_by": by, "fq_products": products,
-                          **own.get(name, {})}
+                          "bound_ms": bms, "bound_by": by}
+            own[name] = {"fq_products": products, **own.get(name, {})}
             emit({"phase": "kernel", "path": path, "bucket": [n, m], "name": name, **rows[name]})
             if not equal:
                 raise SystemExit(f"{name}: kernel disagrees with its plain version on the {path} path")
-        if path in ("gossip", "sync"):
-            # prepare's three launches, device ms from the profiler
-            emit({"phase": "prepare_split", "path": path, "bucket": [n, m],
-                  "profiler_ms": prepare_profile_ms(prepare_in)})
-        return rows
+        emit({"phase": "schedule", "path": path, "bucket": [n, m], "kernels": own})
+        return rows, own
 
-    checks = {"gossip": check_kernels("gossip", att), "sync": check_kernels("sync", sync),
-              "urgent": check_kernels("urgent", [single])}
+    checks, schedules = {}, {}
+    for path, sets in (("gossip", att), ("sync", sync), ("urgent", [single])):
+        checks[path], schedules[path] = check_kernels(path, sets)
 
     # microseconds per product round and per other pass, solved from two
     # kernels that are one block's chain of passes each: the Miller
@@ -574,8 +565,8 @@ def main() -> int:
     # and the hard part (form programs: each pass evaluates its forms), at
     # the gossip bucket
     (m_r, m_p, m_ms), (h_r, h_p, h_ms) = (
-        (g["product_rounds"], g["passes"], g["ms"])
-        for g in (checks["gossip"]["miller_loop_batch"], checks["gossip"]["final_exp_hard_part"]))
+        (schedules["gossip"][k]["product_rounds"], schedules["gossip"][k]["passes"],
+         checks["gossip"][k]["ms"]) for k in ("miller_loop_batch", "final_exp_hard_part"))
     det = m_r * (h_p - h_r) - h_r * (m_p - m_r)
     us_round = 1e3 * (m_ms * (h_p - h_r) - h_ms * (m_p - m_r)) / det
     us_pass = 1e3 * (m_r * h_ms - h_r * m_ms) / det
@@ -761,10 +752,7 @@ def main() -> int:
             "replaces": replaces, "launches": launches["gossip"][name],
             "max_abs_err": g["max_abs_err"], "ms": g["ms"], "plain_ms": g["plain_ms"],
             "bound_ms": g["bound_ms"], "bound_by": g["bound_by"], "library_ms": None,
-            "equal": g["equal"], "fq_products": g["fq_products"],
-            **{k: g[k] for k in ("kernel_fq_products", "product_rounds", "passes", "g2_chain_levels",
-                                 "program_levels", "register_levels") if k in g},
-            "launches_by_path": {path: launches[path][name] for path in launches},
+            "equal": g["equal"], "launches_by_path": {path: launches[path][name] for path in launches},
             "sync": checks["sync"][name], "urgent": checks["urgent"][name],
         }
 
@@ -802,6 +790,13 @@ def main() -> int:
     emit({"phase": "reference", "h2c_matches_python": got == want and not bool(inf)})
     if got != want or bool(inf):
         raise SystemExit("hash-to-G2 disagrees with the pure-Python reference")
+
+    # prepare's three launches, device ms from the profiler, at the gossip
+    # and sync buckets; last, so no path above ran in a profiled process
+    for path, sets in (("gossip", att), ("sync", sync)):
+        p_in, _us = backend.marshal(sets, rands(len(sets)))
+        emit({"phase": "prepare_split", "path": path, "bucket": list(p_in[0].shape[:2]),
+              "profiler_ms": prepare_profile_ms(p_in)})
 
     emit({"kernels": [table[k] for k in K.KERNELS]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,14 +16,13 @@
 //              TG2 dbl programs, 3 product levels and an output pass each,
 //              from area A to B and back) by a 32-lane team, out of line
 //              as the kernels call it (team_run);
-//   variant 5  the same with the interpreter inlined (team_run_body);
-//   variant 6  variant 5 with clock64() stamps in lane 0: out[0..5] are
-//              the cycles spent evaluating operand forms, in fp_mul, in
-//              slot stores, in the passes' __syncwarp, in all, and of the
-//              forms' cycles those in form_terms (the loads and limb sums,
-//              before form_reduce).
-// Each variant writes its chains' last values, so the caller can check
-// that variants 0 and 1 computed the same chain.
+//   variant 5  variant 4 with rounds.cuh's cycle hook stamping clock64():
+//              lane 0's cycles in the operand forms' loads and sums, in
+//              their reductions, in fp_mul, in the slot stores and in the
+//              passes' __syncwarp, then its cycles in all.
+// Variants 0 to 4 write their chains' last values, for the caller to hold
+// against the plain chains. This file builds into a library of its own
+// (kernels.latency_library), apart from the kernels of the paths.
 #include "team.cuh"
 
 // the final subtraction of that product, on 64-bit emulated borrows
@@ -111,8 +110,24 @@ __global__ void latency_team(const int64_t *xs, int64_t *out, int iters) {
   fp_store(out + 24 * lane, S[cur][lane]);
 }
 
-// the G2 point xs[0..6) doubled iters times
-template <bool INLINE>
+// rounds.cuh's cycle hook with clock64() stamps: each lane books its
+// intervals to c[part]; a mark re-reads the clock after its own update, so
+// the bookkeeping falls outside every interval
+struct clock_split {
+  long long *c;
+  long long t;
+  __device__ __forceinline__ void begin() { t = clock64(); }
+  __device__ __forceinline__ void mark(int part) {
+    const long long now = clock64();
+    c[part] += now - t;
+    t = clock64();
+  }
+};
+
+// the G2 point xs[0..6) doubled iters times through team_run, as the
+// kernels call it; SPLIT also writes lane 0's cycles per part to out[0..5)
+// and its cycles in all to out[5]
+template <bool SPLIT>
 __global__ void latency_program(const int64_t *xs, int64_t *out, int iters) {
   __shared__ TG2_tables T;
   __shared__ __align__(16) fp S[TG2_SLOTS];
@@ -125,95 +140,30 @@ __global__ void latency_program(const int64_t *xs, int64_t *out, int iters) {
     slot_store(S, lane, c);
   }
   __syncwarp();
+  long long cycles[SPLIT_N] = {};
+  const long long start = clock64();
   int a = 0;
   for (int k = 0; k < iters; k++) {
     const int prog = a ? TG2_DBL_BA : TG2_DBL_AB;
-    if (INLINE)
-      team_run_body(S, T.ops + TG2_PROG_OPS[prog], T.pass + TG2_PROG_PASS[prog],
-                    TG2_PROG_NPASSES[prog], T.forms + TG2_PROG_FORMS[prog], T.terms, tm);
+    const uint32_t *ops = T.ops + TG2_PROG_OPS[prog];
+    const uint16_t *pass = T.pass + TG2_PROG_PASS[prog], *forms = T.forms + TG2_PROG_FORMS[prog];
+    if constexpr (SPLIT)
+      team_run(S, ops, pass, TG2_PROG_NPASSES[prog], forms, T.terms, tm, clock_split{cycles, 0});
     else
-      T.run(S, prog, tm);
+      team_run(S, ops, pass, TG2_PROG_NPASSES[prog], forms, T.terms, tm);
     a ^= 1;
+  }
+  if constexpr (SPLIT) {
+    if (lane == 0) {
+      for (int part = 0; part < SPLIT_N; part++) out[part] = cycles[part];
+      out[SPLIT_N] = clock64() - start;
+    }
+    return;
   }
   if (lane < 6) {
     fp c;
     slot_load(c, S, 6 * a + lane);
     fp_store(out + 24 * lane, c);
-  }
-}
-
-// variant 6: the interpreter's level loop with lane 0's cycle counts
-__global__ void latency_program_split(const int64_t *xs, int64_t *out, int iters) {
-  __shared__ TG2_tables T;
-  __shared__ __align__(16) fp S[TG2_SLOTS];
-  const int lane = threadIdx.x;
-  T.stage(lane, 32);
-  if (lane < 6) {
-    fp c;
-    fp_load(c, xs + 24 * lane);
-    slot_store(S, lane, c);
-  }
-  __syncwarp();
-  long long c_form = 0, c_terms = 0, c_mul = 0, c_store = 0, c_sync = 0;
-  const long long c_start = clock64();
-  int a = 0;
-  for (int it = 0; it < iters; it++) {
-    const int prog = a ? TG2_DBL_BA : TG2_DBL_AB;
-    const uint32_t *ops = T.ops + TG2_PROG_OPS[prog];
-    const uint16_t *pass = T.pass + TG2_PROG_PASS[prog], *forms = T.forms + TG2_PROG_FORMS[prog];
-    for (int p = 0; p < TG2_PROG_NPASSES[prog]; p++) {
-      const int end = pass[p + 1];
-      for (int k = pass[p] + lane; k < end; k += 32) {
-        const uint32_t w = ops[k];
-        const uint32_t o = (w >> 20) & 1023u, fa = (w >> 10) & 1023u, fb = w & 1023u;
-        fp x, y, r;
-        const long long t0 = clock64();
-        uint64_t ax[12], ay[12];
-        int32_t nx, ny;
-        const bool mul = (w >> 30) == RND_MUL;
-        const bool dx = form_terms(ax, nx, S, forms, T.terms, fa);
-        const bool dy = mul ? form_terms(ay, ny, S, forms, T.terms, fb) : true;
-        const long long tt = clock64();
-        if (dx) {
-#pragma unroll
-          for (int j = 0; j < 12; j++) x.v[j] = (uint32_t)ax[j];
-        } else {
-          form_reduce<true>(x, ax, nx);
-        }
-        if (mul) {
-          if (dy) {
-#pragma unroll
-            for (int j = 0; j < 12; j++) y.v[j] = (uint32_t)ay[j];
-          } else {
-            form_reduce<false>(y, ay, ny);
-          }
-        }
-        const long long t1 = clock64();
-        c_terms += tt - t0;
-        if ((w >> 30) == RND_MUL)
-          fp_mul(r, x, y);
-        else
-          r = x;
-        const long long t2 = clock64();
-        slot_store(S, o, r);
-        const long long t3 = clock64();
-        c_form += t1 - t0;
-        c_mul += t2 - t1;
-        c_store += t3 - t2;
-      }
-      const long long t4 = clock64();
-      __syncwarp();
-      c_sync += clock64() - t4;
-    }
-    a ^= 1;
-  }
-  if (lane == 0) {
-    out[0] = c_form;
-    out[1] = c_mul;
-    out[2] = c_store;
-    out[3] = c_sync;
-    out[4] = clock64() - c_start;
-    out[5] = c_terms;
   }
 }
 
@@ -230,7 +180,6 @@ extern "C" int lh_product_latency(int variant, int iters, const void *xs, const 
     case 3: latency_team<<<1, LAT_TEAM, 0, st>>>(x, o, iters); break;
     case 4: latency_program<false><<<1, 32, 0, st>>>(x, o, iters); break;
     case 5: latency_program<true><<<1, 32, 0, st>>>(x, o, iters); break;
-    case 6: latency_program_split<<<1, 32, 0, st>>>(x, o, iters); break;
     default: return -1;
   }
   return (int)cudaGetLastError();

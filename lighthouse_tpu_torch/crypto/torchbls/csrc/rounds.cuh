@@ -25,6 +25,19 @@
 #define RND_SUB 2u
 #define RND_COPY 3u
 
+// A cycle hook of round_op and team.cuh's team_run: begin() starts an
+// interval, mark(i) ends it and books it to part i. The kernels pass
+// no_split, whose calls are empty; latency.cu's split stamps clock64() at
+// them to share a level's cycles among the operand forms' loads and sums
+// (SPLIT_TERMS) and reductions (SPLIT_REDUCE), the product, the slot store
+// and the team's sync.
+enum { SPLIT_TERMS, SPLIT_REDUCE, SPLIT_MUL, SPLIT_STORE, SPLIT_SYNC, SPLIT_N };
+
+struct no_split {
+  __device__ __forceinline__ void begin() {}
+  __device__ __forceinline__ void mark(int) {}
+};
+
 // slots are 16-byte aligned in shared memory: three 16-byte words each
 static __device__ __forceinline__ void slot_load(fp &r, const fp *S, uint32_t k) {
   const uint4 *p = reinterpret_cast<const uint4 *>(S + k);
@@ -133,25 +146,32 @@ static __device__ __forceinline__ void form_reduce(fp &r, const uint64_t *acc, i
   }
 }
 
+template <class Split>
 static __device__ __forceinline__ void form_load(fp &r, const fp *S, const uint16_t *F,
-                                                 const uint32_t *T, uint32_t f) {
+                                                 const uint32_t *T, uint32_t f, Split &sp) {
   uint64_t acc[12];
   int32_t n;
-  if (form_terms(acc, n, S, F, T, f)) {
+  const bool direct = form_terms(acc, n, S, F, T, f);
+  sp.mark(SPLIT_TERMS);
+  if (direct) {
 #pragma unroll
     for (int j = 0; j < 12; j++) r.v[j] = (uint32_t)acc[j];
   } else {
     form_reduce<true>(r, acc, n);
   }
+  sp.mark(SPLIT_REDUCE);
 }
 
 // both operands of a product: x fully reduced, y below 2p
+template <class Split>
 static __device__ __forceinline__ void form_load2(fp &x, fp &y, const fp *S, const uint16_t *F,
-                                                  const uint32_t *T, uint32_t a, uint32_t b) {
+                                                  const uint32_t *T, uint32_t a, uint32_t b,
+                                                  Split &sp) {
   uint64_t ax[12], ay[12];
   int32_t nx, ny;
   const bool dx = form_terms(ax, nx, S, F, T, a);
   const bool dy = form_terms(ay, ny, S, F, T, b);
+  sp.mark(SPLIT_TERMS);
   if (dx) {
 #pragma unroll
     for (int j = 0; j < 12; j++) x.v[j] = (uint32_t)ax[j];
@@ -164,22 +184,26 @@ static __device__ __forceinline__ void form_load2(fp &x, fp &y, const fp *S, con
   } else {
     form_reduce<false>(y, ay, ny);
   }
+  sp.mark(SPLIT_REDUCE);
 }
 
-template <bool FORMS>
+template <bool FORMS, class Split = no_split>
 static __device__ __forceinline__ void round_op(fp *S, uint32_t w, const uint16_t *F,
-                                                const uint32_t *T) {
+                                                const uint32_t *T, Split sp = Split()) {
   const uint32_t kind = w >> 30, o = (w >> 20) & 1023u, a = (w >> 10) & 1023u, b = w & 1023u;
   fp x, y, r;
   if constexpr (FORMS) {  // a product of two forms, or (COPY) a form's value
+    sp.begin();
     if (kind == RND_MUL) {
-      form_load2(x, y, S, F, T, a, b);
+      form_load2(x, y, S, F, T, a, b, sp);
       fp_mul(r, x, y);
+      sp.mark(SPLIT_MUL);
       slot_store(S, o, r);
     } else {
-      form_load(x, S, F, T, a);
+      form_load(x, S, F, T, a, sp);
       slot_store(S, o, x);
     }
+    sp.mark(SPLIT_STORE);
     return;
   }
   slot_load(x, S, a);

@@ -30,23 +30,21 @@ struct team {
 
 static __device__ __forceinline__ void team_sync(const team &tm) { __syncwarp(tm.mask); }
 
-// one program: per pass, lane l takes ops l, l + nl, ...; then a team sync
-static __device__ __forceinline__ void team_run_body(fp *S, const uint32_t *ops,
-                                                     const uint16_t *pass, int npasses,
-                                                     const uint16_t *forms, const uint32_t *terms,
-                                                     const team &tm) {
-  for (int p = 0; p < npasses; p++) {
-    const int end = pass[p + 1];
-    for (int k = pass[p] + tm.lane; k < end; k += tm.nl) round_op<true>(S, ops[k], forms, terms);
-    team_sync(tm);
-  }
-}
-
-// the kernels call the interpreter out of line: one copy of its code
+// one program: per pass, lane l takes ops l, l + nl, ...; then a team
+// sync. Out of line, so a kernel holds one copy of the interpreter's code;
+// sp is rounds.cuh's cycle hook (latency.cu's split; none in the kernels).
+template <class Split = no_split>
 static __device__ __noinline__ void team_run(fp *S, const uint32_t *ops, const uint16_t *pass,
                                              int npasses, const uint16_t *forms,
-                                             const uint32_t *terms, team tm) {
-  team_run_body(S, ops, pass, npasses, forms, terms, tm);
+                                             const uint32_t *terms, team tm, Split sp = Split()) {
+  for (int p = 0; p < npasses; p++) {
+    const int end = pass[p + 1];
+    for (int k = pass[p] + tm.lane; k < end; k += tm.nl)
+      round_op<true>(S, ops[k], forms, terms, sp);
+    sp.begin();
+    team_sync(tm);
+    sp.mark(SPLIT_SYNC);
+  }
 }
 
 // A prefix's tables in shared memory: declare `__shared__ TG1_tables t;`,

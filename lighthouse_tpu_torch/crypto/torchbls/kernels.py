@@ -21,7 +21,8 @@ Kernel, source, and the TPU kernel (or XLA function) it replaces:
                                             (its easy part, kept in XLA there)
 (pallas_ops.py and pairing_ops.py are under lighthouse_tpu/crypto/jaxbls/.)
 csrc/latency.cu (lh_product_latency) times chains of Fq products and team
-levels for chip_smoke.py's product_latency phase; no path launches it.
+levels for chip_smoke.py's product_latency phase; no path launches it, and
+it builds into a library of its own (latency_library).
 """
 
 from __future__ import annotations
@@ -47,7 +48,7 @@ from . import tower as tw
 NL = lb.NL
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("fq_mont_mul.cu", "prepare.cu", "pairs.cu", "miller.cu", "hard_part.cu", "h2c.cu",
-           "easy_part.cu", "latency.cu")
+           "easy_part.cu")
 
 
 # ------------------------------------------------------------ build + load
@@ -109,14 +110,25 @@ def consts_header() -> str:
     return "\n".join(lines) + "\n"
 
 
+def _generated() -> dict[str, str]:
+    return {"bls_consts.cuh": consts_header(), "round_programs.cuh": rounds.header(),
+            "team_programs.cuh": team.header()}
+
+
+@functools.lru_cache(maxsize=None)
+def latency_library() -> torchcfg.KernelLibrary:
+    """Build (or reuse) and load csrc/latency.cu's timing chains."""
+    kl = torchcfg.build_kernels("lh_latency", [CSRC / "latency.cu"], CSRC, _generated())
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    kl.lib.lh_product_latency.argtypes = [i32, i32, vp, vp, vp, vp]
+    kl.lib.lh_product_latency.restype = i32
+    return kl
+
+
 @functools.lru_cache(maxsize=None)
 def library() -> torchcfg.KernelLibrary:
     """Build (or reuse) and load the kernel library, declaring every entry."""
-    kl = torchcfg.build_kernels(
-        "lh_bls", [CSRC / s for s in SOURCES], CSRC,
-        {"bls_consts.cuh": consts_header(), "round_programs.cuh": rounds.header(),
-         "team_programs.cuh": team.header()},
-    )
+    kl = torchcfg.build_kernels("lh_bls", [CSRC / s for s in SOURCES], CSRC, _generated())
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     sigs = {
         "lh_fq_mont_mul": ([vp, vp, vp, i64, vp], i32),
@@ -128,7 +140,6 @@ def library() -> torchcfg.KernelLibrary:
         "lh_final_exp_hard_part": ([vp, vp, vp], i32),
         "lh_hash_to_g2": ([vp, i32, vp, vp, vp, vp], i32),
         "lh_final_exp_easy_part": ([vp, vp, vp], i32),
-        "lh_product_latency": ([i32, i32, vp, vp, vp, vp], i32),
     }
     for fname, (argtypes, restype) in sigs.items():
         fn = getattr(kl.lib, fname)
