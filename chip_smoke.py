@@ -11,7 +11,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
   2. field self-test: the fq_mont_mul kernel against the plain mont_mul on
      2^20 seeded random elements and every pair of edge operands
      (torch.equal); product_latency: csrc/latency.cu's chains of dependent
-     Fq products and team levels, each held against its plain chain;
+     Fq products, team levels and Fq inversions (the Fermat chain against
+     fq.cuh's binary GCD, one thread and a warp), each held against its
+     plain chain; inverse: the binary GCD against the Fermat chain on 2^16
+     seeded random elements and the edge inputs (the count that differ);
   3. each kernel against its plain version on the card (torch.equal), on
      the real stage data of the 64 x 128 gossip batch, the 512-key sync
      aggregate and the one-key urgent verify, with its time (CUDA events),
@@ -33,11 +36,14 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
      bls.verify_signature_sets_async at depth 4, the 5th tampered: verdicts
      in FIFO order), urgent (bls.verify of one fixture key while four
      batches fill the window), aggregate_verify (the 64 sets as one
-     distinct-message AggregateVerify; a flipped message byte must fail);
+     distinct-message AggregateVerify, its pair assembly on fq_mont_mul and
+     stage_pairs; a flipped message byte must fail);
   5. the 15 EF BLS vectors through the port's API;
   6. per-stage times of the gossip batch, hash-to-G2 of one message
-     against the pure-Python RFC 9380 map, and prepare's three launches'
-     device times from torch.profiler at the gossip and sync buckets.
+     against the pure-Python RFC 9380 map, and each kernel's device time
+     from torch.profiler at the three buckets (prepare's three launches
+     apart), beside phase 3's CUDA-event times, which take in the host's
+     time where a wrapper's Python outlasts its kernel.
 The last two lines are the kernel table and the device line.
 """
 
@@ -60,14 +66,17 @@ EF_BLS = os.path.join(ROOT, "tests", "ef", "vectors", "general", "phase0", "bls"
 # kernels each driven path must launch
 MAIN_PATH = ("stage_prepare", "hash_to_g2", "stage_pairs", "miller_loop_batch",
              "miller_loop_product", "final_exp_easy_part", "final_exp_hard_part")
-AGGREGATE_PATH = ("hash_to_g2", "miller_loop_batch", "miller_loop_product",
-                  "final_exp_easy_part", "final_exp_hard_part")
+AGGREGATE_PATH = ("fq_mont_mul", "hash_to_g2", "stage_pairs", "miller_loop_batch",
+                  "miller_loop_product", "final_exp_easy_part", "final_exp_hard_part")
+INV_ITERS = 15                    # inversions per chain in product_latency (odd: x -> x^-1)
+INV_N = 1 << 16                   # random elements of the inversion check
 
-# H100 SXM peaks (NVIDIA data sheet): HBM 3.35 TB/s. Integer multiply-add:
-# 64 32-bit IMAD per clock per SM (CUDA C++ Programming Guide, throughput
+# H100 SXM peaks (NVIDIA data sheet): HBM 3.35 TB/s. 32-bit integer
+# instructions: 64 per clock per SM for multiply-add (IMAD), add, shift,
+# compare, select and logic alike (CUDA C++ Programming Guide, throughput
 # table, compute capability 9.0) x 132 SMs x 1.98 GHz boost = 16.7 T/s.
 HBM_BYTES_PER_S = 3.35e12
-IMAD_PER_S = 64 * 132 * 1.98e9
+INT32_PER_S = 64 * 132 * 1.98e9
 # One 381-bit Montgomery product, 12 x 32-bit limbs (CIOS): 2*12*12 + 12
 # 32x32->64-bit multiply-adds, two IMAD issues each (low and high word).
 IMAD_PER_FQ_MUL = 2 * (2 * 12 * 12 + 12)
@@ -160,8 +169,9 @@ def compare(kernel_out, plain_out) -> tuple[bool, int]:
 # kernels' own counts stand beside them in the kernel rows): G1 double 7,
 # G1 add 16; G2 double 16, G2 add 44 (an Fq2 product is 3, an Fq2 square
 # 2); Fq12 product 54, cyclotomic square 18, Fq12 square 36; an Fq inversion
-# 381 squarings + popcount(p-2) products. An addition with an identity
-# operand does no product.
+# one product (by R^3) beside its binary GCD, which is counted apart as
+# 32-bit integer instructions (int_ops_inverse). An addition with an
+# identity operand does no product.
 
 
 def _popcount(x: int) -> int:
@@ -183,11 +193,36 @@ def fq_products_prepare(pk_mask, z_bits, set_mask) -> int:
     return total
 
 
-def fq_products_pairs(n: int) -> int:
-    from lighthouse_tpu_torch.crypto.bls381.constants import P
+# fq.cuh's fp_inv (a binary GCD) in 32-bit integer instructions, counted
+# from its source loop by loop (a 64-bit operation is two): INV_BATCHES
+# batches, each of INV_STEPS divsteps of 24 (the parity 1, a 64-bit
+# compare 2, the swap flag 1, the swap's selects of A and B 4 and of the
+# four factors 4, a masked 64-bit subtraction 4 and shift 2, the factor
+# updates 6) and of 878 more: the bit length over 12 words 50, two 62-bit
+# approximations 38 each, two exact updates of a and b 156 each (per
+# factor its magnitude 2, a product of 12 words by it 25 and a 13-word
+# conditional negation 26; a 13-word sum 13, a 12-word shift 12, the sign
+# 1, a 12-word conditional negation 24), the factors' signs 8, and two
+# updates of u and v mod p 216 each (two negations mod p 37 each, selects
+# 24, magnitudes 4, three products by a factor 25 each, the quotient 2, a
+# 12-word shift 12, a conditional subtraction 25). Its last product by R^3
+# is an Fq product.
+INV_DIVSTEP_OPS = 24
+INV_BATCH_OPS = 50 + 2 * 38 + 2 * 156 + 8 + 2 * 216
 
-    fq2_inv = 4 + 381 + _popcount(P - 2)              # norm, Fermat chain, scale
-    return (2 * n + 1) * (fq2_inv + 2 + 3) + n * 2 + (n + 1) * 6
+
+def int_ops_inverse() -> int:
+    from lighthouse_tpu_torch.crypto.torchbls import kernels as K
+
+    return K.INV_BATCHES * (K.INV_STEPS * INV_DIVSTEP_OPS + INV_BATCH_OPS)
+
+
+def fq_products_pairs(n: int) -> int:
+    """Per Z lane an Fq2 inversion (the norm's two squares, the inversion's
+    product by R^3, two products by the norm's inverse; its GCD is
+    int_ops_inverse) and Z^-2, Z^-3 (2 + 3); the G1 lanes' X and Y 2, the
+    other lanes' 6."""
+    return (2 * n + 1) * (4 + 1 + 2 + 3) + n * 2 + (n + 1) * 6
 
 
 def fq_products_miller_batch(mask) -> int:
@@ -259,16 +294,16 @@ def fq_products_h2c(n: int) -> int:
 
 def fq_products_easy_part() -> int:
     """easy_part.cu: the Fq12 inversion (four Fq6 products; the Fq6
-    adjugate's three Fq2 squares and nine Fq2 products; one Fq2 inversion),
-    two Fq12 products and a Frobenius (six Fq2 products)."""
-    from lighthouse_tpu_torch.crypto.bls381.constants import P
-
-    fq2_inv = 4 + 381 + _popcount(P - 2)
-    return 4 * 18 + (3 * 2 + 9 * 3) + fq2_inv + 2 * 54 + 6 * 3
+    adjugate's three Fq2 squares and nine Fq2 products; one Fq2 inversion,
+    its Fq inversion one product beside its GCD, int_ops_inverse), two Fq12
+    products and a Frobenius (six Fq2 products)."""
+    return 4 * 18 + (3 * 2 + 9 * 3) + (4 + 1) + 2 * 54 + 6 * 3
 
 
-def bound_ms(fq_products: int, bytes_moved: int) -> tuple[float, str]:
-    ops_ms = fq_products * IMAD_PER_FQ_MUL / IMAD_PER_S * 1e3
+def bound_ms(fq_products: int, bytes_moved: int, int_ops: int = 0) -> tuple[float, str]:
+    """The larger of the bytes over HBM's rate and the integer instructions
+    (each Fq product's IMADs, and int_ops more) over the integer rate."""
+    ops_ms = (fq_products * IMAD_PER_FQ_MUL + int_ops) / INT32_PER_S * 1e3
     bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
@@ -350,6 +385,19 @@ def product_latency(dev) -> dict:
     cyc = [int(c) for c in out.view(-1)[:6].tolist()]
     split = {k: c / levels for k, c in zip(("form_terms", "form_reduce", "fp_mul", "store",
                                             "syncwarp", "all"), cyc)}
+    # one Fq inversion: the Fermat chain (lh_inverse variant 0) against
+    # fq.cuh's binary GCD (variant 1), in one thread and in a warp of 32
+    # threads with different inputs, INV_ITERS inversions x <- x^-1 each
+    us_inverse = {}
+    for variant, alg in ((0, "fermat"), (1, "gcd")):
+        for lanes, who in ((1, "thread"), (32, "warp")):
+            def launch_inverse(v=variant, n=lanes):
+                err = lib.lh_inverse(v, n, INV_ITERS, xs.data_ptr(), out.data_ptr(),
+                                     torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise SystemExit(f"lh_inverse variant {v}: CUDA error {err}")
+            us_inverse[f"{alg}_{who}"] = cuda_ms(launch_inverse, 3) * 1e3 / INV_ITERS
+            got[f"inverse_{alg}_{who}"] = out[:lanes].clone()
     pt = (xs[0:2], xs[2:4], xs[4:6])
     for _ in range(dbls):
         pt = co.jac_double(pt, co.FQ2_OPS)
@@ -363,6 +411,9 @@ def product_latency(dev) -> dict:
              "warp_32_chains": torch.equal(got["warp_32_chains"], x),
              "team_level": torch.equal(got["team_level"], t),
              "program": torch.equal(got["program"], torch.cat(pt))}
+    xinv = lb.mont_inv(xs)                  # INV_ITERS is odd: each chain ends at x^-1
+    for k in us_inverse:
+        equal[f"inverse_{k}"] = torch.equal(got[f"inverse_{k}"], xinv[:got[f"inverse_{k}"].shape[0]])
     return {"us_per_product_cios64": res["cios64_chain"],
             "us_per_product_carry_chain": res["carry_chain"],
             "warp_products_per_us": 32 / res["warp_32_chains"],
@@ -370,29 +421,91 @@ def product_latency(dev) -> dict:
             "us_per_team_level": res["team_level"],
             "us_per_program_level": res["program"],
             "cycles_per_program_level": split,
+            "us_per_inverse": us_inverse, "inverse_iters": INV_ITERS,
             "iters": LATENCY_ITERS, "equal": equal}
 
 
-def prepare_profile_ms(prepare_in, reps: int = 3) -> dict:
-    """Device ms per kernel of kernels.stage_prepare from torch.profiler
-    (mean over reps calls), by kernel name."""
+def inverse_check(dev) -> dict:
+    """fq.cuh's binary-GCD inversion against the Fermat chain it replaced
+    (csrc/latency.cu's lh_inverse, variants 1 and 0, a thread per element)
+    on INV_N seeded random elements and the edge inputs 0, 1, p - 1, p - 2,
+    R mod p, R^2 mod p, (2^381 - k) mod p and the powers of two below
+    2^381 (2^380 takes the most divsteps): the count of elements where they
+    differ, the GCD against the plain limbs.mont_inv, and each variant's
+    ms for the whole batch (CUDA events)."""
+    import numpy as np
     import torch
+
+    from lighthouse_tpu_torch.crypto.bls381.constants import P
+    from lighthouse_tpu_torch.crypto.torchbls import kernels as K
+    from lighthouse_tpu_torch.crypto.torchbls import limbs as lb
+
+    lib = K.latency_library().lib
+    gen = torch.Generator(device=dev).manual_seed(20261019)
+    x = torch.randint(0, 1 << 16, (INV_N, lb.NL), generator=gen, device=dev)
+    x[:, -1] = torch.randint(0, 0x1A01, (INV_N,), generator=gen, device=dev)    # < p
+    r = (1 << 384) % P
+    edges = ([0, 1, P - 1, P - 2, r, r * r % P] + [((1 << 381) - k) % P for k in (1, 2, 3)]
+             + [1 << k for k in range(381)])
+    x = torch.cat([x, torch.as_tensor(np.stack([lb.pack(v) for v in edges]).astype(np.int64),
+                                      device=dev)])
+    outs, ms = {}, {}
+    for variant, alg in ((0, "fermat"), (1, "gcd")):
+        out = torch.empty_like(x)
+
+        def launch(v=variant, o=out):
+            err = lib.lh_inverse(v, x.shape[0], 1, x.data_ptr(), o.data_ptr(),
+                                 torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise SystemExit(f"lh_inverse variant {v}: CUDA error {err}")
+        ms[alg] = cuda_ms(launch, 3)
+        outs[alg] = out
+    differ = int((outs["fermat"] != outs["gcd"]).any(dim=-1).sum())
+    return {"n": INV_N, "edges": len(edges), "differ": differ,
+            "gcd_equal_plain": torch.equal(outs["gcd"], lb.mont_inv(x)), "ms": ms}
+
+
+# each wrapper's hand-written kernels, by the names torch.profiler gives them
+KERNEL_FUNCTIONS = {
+    "fq_mont_mul": ("fq_mont_mul_kernel",),
+    "stage_prepare": ("prepare_aggregate", "prepare_scale", "prepare_sig_sum"),
+    "stage_pairs": ("pairs_kernel",),
+    "miller_loop_product": ("miller_batch_kernel", "tree_level_kernel"),
+    "miller_loop_batch": ("miller_batch_kernel",),
+    "final_exp_hard_part": ("hard_part_kernel",),
+    "hash_to_g2": ("h2c_kernel",),
+    "final_exp_easy_part": ("easy_part_kernel",),
+}
+
+
+def profile_ms(name, args, reps: int = 3) -> dict:
+    """Device ms per call of the kernels that the wrapper `name` launches on
+    args, from torch.profiler (mean over reps calls): its hand-written
+    kernels by name and in all (kernel_ms), and the torch kernels of the
+    wrapper's own tensor work (wrapper_torch_ms), apart from the host time
+    that CUDA events around back-to-back calls also take in."""
+    import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from lighthouse_tpu_torch.crypto.torchbls import kernels as K
 
-    K.stage_prepare(*prepare_in)
+    wrapper = K.KERNELS[name][0]
+    wrapper(*args)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
-            K.stage_prepare(*prepare_in)
+            wrapper(*args)
         torch.cuda.synchronize()
-    out = {}
+    ours, other = {}, 0.0
     for ev in prof.key_averages():
-        if ev.key.startswith("prepare_"):
-            dev_us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
-            out[ev.key.split("(")[0]] = dev_us / 1e3 / reps
-    return out
+        key = ev.key.split("(")[0]
+        dev_us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+        if key in KERNEL_FUNCTIONS[name]:
+            ours[key] = dev_us / 1e3 / reps
+        elif getattr(ev, "device_type", None) == DeviceType.CUDA:
+            other += dev_us / 1e3 / reps
+    return {"kernel_ms": sum(ours.values()), "split": ours, "wrapper_torch_ms": other}
 
 
 # ------------------------------------------------------------ phases
@@ -468,6 +581,10 @@ def main() -> int:
     emit({"phase": "product_latency", "device": smi, **latency})
     if not all(latency["equal"].values()):
         raise SystemExit(f"product_latency chains disagree with the plain chains: {latency['equal']}")
+    inverse = inverse_check(dev)
+    emit({"phase": "inverse", **inverse})
+    if inverse["differ"] or not inverse["gcd_equal_plain"]:
+        raise SystemExit(f"the binary-GCD inversion disagrees with the Fermat chain: {inverse}")
 
     # fixtures: 64 attestations x 128 keys, the 512-key sync aggregate
     t0 = time.perf_counter()
@@ -495,9 +612,10 @@ def main() -> int:
     # gossip shapes (64 messages, 65 pairs)
     backend = be.TorchBackend(device="cuda")
 
-    def check_kernels(path: str, sets) -> tuple[dict, dict]:
-        """Each kernel's row (measured, with its bound) and its schedule
-        (counted from the inputs and the programs, not measured)."""
+    def check_kernels(path: str, sets) -> tuple[dict, dict, dict]:
+        """Each kernel's row (measured, with its bound), its schedule
+        (counted from the inputs and the programs, not measured) and its
+        arguments (the stage data)."""
         prepare_in, us = backend.marshal(sets, rands(len(sets)))
         n, m = prepare_in[0].shape[:2]
         z_pk, sig_acc, _bad = K.stage_prepare(*prepare_in)
@@ -532,8 +650,12 @@ def main() -> int:
                                      "product_rounds": RD.miller_rounds(1),
                                      "passes": RD.miller_passes(1)},
                "final_exp_hard_part": RD.hard_work(),
+               "final_exp_easy_part": RD.easy_work(),
                "stage_prepare": {"g2_chain_levels": g2_levels},
                "hash_to_g2": TM.h2c_levels()}
+        # the binary GCDs' integer instructions: one per Z lane, one in the easy part
+        int_ops = {"stage_pairs": (2 * n + 1) * int_ops_inverse(),
+                   "final_exp_easy_part": int_ops_inverse()}
         rows = {}
         for name, (args, products, reps) in cases.items():
             wrapper, plain, _source, _replaces = K.KERNELS[name]
@@ -545,19 +667,22 @@ def main() -> int:
             plain_ms = (time.perf_counter() - t1) * 1e3
             equal, err = compare(kout, pout)
             ms = cuda_ms(lambda: wrapper(*args), reps)
-            bms, by = bound_ms(products, bytes_needed(args) + bytes_needed(kout))
+            bms, by = bound_ms(products, bytes_needed(args) + bytes_needed(kout),
+                               int_ops.get(name, 0))
             rows[name] = {"max_abs_err": err, "equal": equal, "ms": ms, "plain_ms": plain_ms,
                           "bound_ms": bms, "bound_by": by}
             own[name] = {"fq_products": products, **own.get(name, {})}
+            if name in int_ops:
+                own[name]["inverse_int_ops"] = int_ops[name]
             emit({"phase": "kernel", "path": path, "bucket": [n, m], "name": name, **rows[name]})
             if not equal:
                 raise SystemExit(f"{name}: kernel disagrees with its plain version on the {path} path")
         emit({"phase": "schedule", "path": path, "bucket": [n, m], "kernels": own})
-        return rows, own
+        return rows, own, {name: c[0] for name, c in cases.items()}
 
-    checks, schedules = {}, {}
+    checks, schedules, kernel_args = {}, {}, {}
     for path, sets in (("gossip", att), ("sync", sync), ("urgent", [single])):
-        checks[path], schedules[path] = check_kernels(path, sets)
+        checks[path], schedules[path], kernel_args[path] = check_kernels(path, sets)
 
     # microseconds per product round and per other pass, solved from two
     # kernels that are one block's chain of passes each: the Miller
@@ -791,12 +916,17 @@ def main() -> int:
     if got != want or bool(inf):
         raise SystemExit("hash-to-G2 disagrees with the pure-Python reference")
 
-    # prepare's three launches, device ms from the profiler, at the gossip
-    # and sync buckets; last, so no path above ran in a profiled process
-    for path, sets in (("gossip", att), ("sync", sync)):
-        p_in, _us = backend.marshal(sets, rands(len(sets)))
-        emit({"phase": "prepare_split", "path": path, "bucket": list(p_in[0].shape[:2]),
-              "profiler_ms": prepare_profile_ms(p_in)})
+    # each kernel's device ms from the profiler (prepare's three launches
+    # apart) on the stage data of each bucket, beside the CUDA-event ms of
+    # back-to-back wrapper calls, which take in the host's time where a
+    # wrapper's Python outlasts its kernel; last, so no path above ran in a
+    # profiled process
+    for path, args_of in kernel_args.items():
+        device = {name: profile_ms(name, args) for name, args in args_of.items()}
+        emit({"phase": "device_ms", "path": path,
+              "bucket": list(args_of["stage_prepare"][0].shape[:2]), "kernels": device})
+        for name, d in device.items():
+            (table[name] if path == "gossip" else table[name][path])["device_ms"] = d["kernel_ms"]
 
     emit({"kernels": [table[k] for k in K.KERNELS]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

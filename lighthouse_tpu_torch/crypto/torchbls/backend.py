@@ -45,6 +45,7 @@ from . import kernels
 from . import limbs as lb
 from . import pairing_ops as po
 from . import pipeline
+from . import tower as tw
 
 MIN_SETS = 4          # smallest set bucket
 MIN_PKS = 1
@@ -82,17 +83,23 @@ def stage_pairing(px, py, qxx, qyy, pair_mask):
 
 def aggregate_pairs(pk_x, pk_y, mask, sig_xy, h_jac):
     """Pair assembly of distinct-message AggregateVerify (the JAX backend's
-    _aggregate_kernel), plain torch: standard-form pubkeys pk_x, pk_y (n, NL)
-    with their mask (n,), the standard-form signature sig_xy (2, 2, NL) and
-    the hashed messages h_jac -> (px, py, qxx, qyy, pair_mask) of the n + 1
-    pairs (pk_i, H(m_i)) and (-g1, sig)."""
-    pk_x, pk_y, sig_xy = lb.to_mont(pk_x), lb.to_mont(pk_y), lb.to_mont(sig_xy)
-    qx, qy, qinf = co.jac_to_affine(h_jac, co.FQ2_OPS)
-    px = torch.cat([pk_x, lb.const(kernels._NEG_G1[0], pk_x)[None]])
-    py = torch.cat([pk_y, lb.const(kernels._NEG_G1[1], pk_y)[None]])
-    qxx = torch.cat([qx, sig_xy[None, 0]])
-    qyy = torch.cat([qy, sig_xy[None, 1]])
-    pair_mask = torch.cat([(mask != 0) & ~qinf, torch.ones((1,), dtype=torch.bool, device=qinf.device)])
+    _aggregate_kernel): standard-form pubkeys pk_x, pk_y (n, NL) with their
+    mask (n,), the standard-form signature sig_xy (2, 2, NL) and the hashed
+    messages h_jac -> (px, py, qxx, qyy, pair_mask) of the n + 1 pairs
+    (pk_i, H(m_i)) and (-g1, sig). The Montgomery conversions are one
+    kernels.fq_mont_mul, the affine conversion kernels.stage_pairs with Z =
+    1 for the pubkeys and the signature. A pair whose H(m_i) is the
+    identity (Z = 0) is masked and keeps its X and Y, as jac_to_affine
+    leaves them (it inverts 1 there, where stage_pairs inverts 0)."""
+    n = pk_x.shape[0]
+    mont = kernels.fq_mont_mul(torch.cat([pk_x, pk_y, sig_xy.reshape(4, lb.NL)]))
+    pk_x, pk_y, sig_x, sig_y = mont[:n], mont[n:2 * n], mont[2 * n:2 * n + 2], mont[2 * n + 2:]
+    z_pk = (pk_x, pk_y, lb.const(lb.ONE_MONT, pk_x).expand_as(pk_x))
+    sig = (sig_x, sig_y, lb.const(tw.FQ2_ONE, sig_x))
+    px, py, qxx, qyy, pair_mask = kernels.stage_pairs(z_pk, h_jac, sig, mask)
+    qinf = tw.fq2_is_zero(h_jac[2])[:, None, None]
+    qxx = torch.cat([torch.where(qinf, h_jac[0], qxx[:n]), qxx[n:]])
+    qyy = torch.cat([torch.where(qinf, h_jac[1], qyy[:n]), qyy[n:]])
     return px, py, qxx, qyy, pair_mask
 
 

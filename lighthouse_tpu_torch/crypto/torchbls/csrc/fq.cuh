@@ -9,9 +9,10 @@
 // Multiplication is CIOS Montgomery over 32-bit words on PTX carry chains
 // (mad.lo.cc / madc.hi.cc): 12 x 12 multiply-adds plus the interleaved
 // reduction, each as a low and a high word, ~600 integer instructions.
-// The constants (p, -p^-1 mod 2^32, R mod p, R^2 mod p, the Frobenius
-// coefficients) come from the generated bls_consts.cuh, written at build
-// time from the package's Python tables (kernels.py).
+// The constants (p, -p^-1 mod 2^32, R mod p, R^2 mod p, R^3 mod p, the
+// inversion's batch counts, the Frobenius coefficients) come from the
+// generated bls_consts.cuh, written at build time from the package's
+// Python tables (kernels.py).
 #pragma once
 #include <stdint.h>
 
@@ -57,6 +58,11 @@ static __device__ __forceinline__ uint32_t subc(uint32_t a, uint32_t b) {
 static __device__ __forceinline__ uint32_t mad_lo_cc(uint32_t a, uint32_t b, uint32_t c) {
   uint32_t r;
   asm volatile("mad.lo.cc.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
+  return r;
+}
+static __device__ __forceinline__ uint32_t mad_hi_cc(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t r;
+  asm volatile("mad.hi.cc.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
   return r;
 }
 static __device__ __forceinline__ uint32_t madc_lo_cc(uint32_t a, uint32_t b, uint32_t c) {
@@ -245,13 +251,162 @@ static __device__ __forceinline__ void fp_to_mont(fp &r, const fp &a) {
   fp_mul(r, a, r2);
 }
 
-// a^(p-2) = a^-1 (0 maps to 0): square-and-multiply over the bits of p - 2
-static __device__ __noinline__ void fp_inv(fp &r, const fp &a) {
-  fp acc;
-  fp_set_one(acc);
-  for (int i = 380; i >= 0; i--) {
-    fp_sqr(acc, acc);
-    if ((FP_PM2[i >> 5] >> (i & 31)) & 1u) fp_mul(acc, acc, a);
+// ------------------------------------------------------------ inversion
+//
+// a^-1 for a in Montgomery form (0 maps to 0): Pornin's optimized binary
+// GCD (eprint 2020/972, Algorithm 2, k = 31), not a Fermat chain. The
+// inputs of a verification are public, so the inversion need not be
+// constant-time; it is branch-free all the same, so the lanes of a warp
+// that invert different values never diverge. From x = aR it runs
+// INV_BATCHES batches of INV_STEPS divsteps, 2 * 381 - 1 divsteps in all
+// rounded up (bls_consts.cuh): each batch takes the divsteps on 62-bit
+// approximations of a and b (their low 30 bits exact, their top 32 bits
+// at the bit length of the larger), collects them as a 2x2 matrix of
+// signed factors with |f| + |g| <= 2^30, and applies it to the 12-word a,
+// b (exactly, then divided by 2^30) and u, v (mod p, with a Montgomery
+// division by 2^30). So b ends at gcd = 1 and v at x^-1 = a^-1 R^-1, and
+// one product by R^3 gives a^-1 R. An inverse is unique and every result
+// is fully reduced, so it equals a Fermat chain's bits.
+// tests/test_torch_inverse.py restates it on 32-bit words.
+
+// t (13 words) += x * k for a 12-word x; the sum stays below 2^416
+static __device__ __forceinline__ void inv_mad(uint32_t *t, const uint32_t *x, uint32_t k) {
+  t[0] = mad_lo_cc(x[0], k, t[0]);
+#pragma unroll
+  for (int j = 1; j < 12; j++) t[j] = madc_lo_cc(x[j], k, t[j]);
+  t[12] = addc(t[12], 0);
+  t[1] = mad_hi_cc(x[0], k, t[1]);
+#pragma unroll
+  for (int j = 2; j < 12; j++) t[j] = madc_hi_cc(x[j - 1], k, t[j]);
+  t[12] = madc_hi(x[11], k, t[12]);
+}
+
+// x = -x (two's complement over n words) where neg
+template <int N>
+static __device__ __forceinline__ void inv_cneg(uint32_t *x, bool neg) {
+  const uint32_t m = neg ? 0xFFFFFFFFu : 0u;
+  x[0] = add_cc(x[0] ^ m, m & 1u);
+#pragma unroll
+  for (int j = 1; j < N - 1; j++) x[j] = addc_cc(x[j] ^ m, 0);
+  x[N - 1] = addc(x[N - 1] ^ m, 0);
+}
+
+// r = (x f + y g) / 2^30 for x, y < 2^381, |f| + |g| <= 2^30: exact, as
+// the batch's divsteps cleared the low 30 bits. r gets the magnitude; the
+// sign is returned.
+static __device__ __forceinline__ bool inv_lin(uint32_t *r, const uint32_t *x, const uint32_t *y,
+                                               int32_t f, int32_t g) {
+  uint32_t X[13], Y[13];
+#pragma unroll
+  for (int j = 0; j < 13; j++) X[j] = Y[j] = 0;
+  inv_mad(X, x, f < 0 ? -f : f);
+  inv_cneg<13>(X, f < 0);
+  inv_mad(Y, y, g < 0 ? -g : g);
+  inv_cneg<13>(Y, g < 0);
+  X[0] = add_cc(X[0], Y[0]);
+#pragma unroll
+  for (int j = 1; j < 12; j++) X[j] = addc_cc(X[j], Y[j]);
+  X[12] = addc(X[12], Y[12]);
+#pragma unroll
+  for (int j = 0; j < 12; j++) r[j] = __funnelshift_r(X[j], X[j + 1], 30);
+  const bool neg = r[11] >> 31;   // |r| < 2^381: bit 383 is the sign
+  inv_cneg<12>(r, neg);
+  return neg;
+}
+
+// r = (u f + v g) / 2^30 mod p for u, v < p, |f| + |g| <= 2^30: u is taken
+// as -u mod p where f < 0 (v likewise), so both terms are nonnegative; then
+// q p, q = t (-p^-1) mod 2^30, clears the low 30 bits, and the quotient,
+// below 2p, takes one conditional subtraction.
+static __device__ __forceinline__ void inv_lin_mod(fp &r, const fp &u, const fp &v, int32_t f,
+                                                   int32_t g) {
+  fp nu, nv;
+  fp_neg(nu, u);
+  fp_neg(nv, v);
+  uint32_t t[13];
+#pragma unroll
+  for (int j = 0; j < 13; j++) t[j] = 0;
+  fp uu, vv;
+#pragma unroll
+  for (int j = 0; j < 12; j++) {
+    uu.v[j] = f < 0 ? nu.v[j] : u.v[j];
+    vv.v[j] = g < 0 ? nv.v[j] : v.v[j];
   }
-  r = acc;
+  inv_mad(t, uu.v, f < 0 ? -f : f);
+  inv_mad(t, vv.v, g < 0 ? -g : g);
+  uint32_t pw[12];
+#pragma unroll
+  for (int j = 0; j < 12; j++) pw[j] = FP_P[j];
+  inv_mad(t, pw, (t[0] * FP_INV) & 0x3FFFFFFFu);
+  uint32_t w[12];
+#pragma unroll
+  for (int j = 0; j < 12; j++) w[j] = __funnelshift_r(t[j], t[j + 1], 30);
+  fp_reduce_once(r, w, 0);
+}
+
+// the 62-bit approximation of x for n = s + 32: its low 30 bits, and its
+// bits s .. s + 31 above them (30 <= s <= 349, so the word x[s / 32 + 1]
+// exists); selects, not an indexed load, so x stays in registers
+static __device__ __forceinline__ uint64_t inv_approx(const uint32_t *x, uint32_t s) {
+  const uint32_t q = s >> 5;
+  uint32_t lo = 0, hi = 0;
+#pragma unroll
+  for (int j = 0; j < 11; j++) {
+    lo = j == q ? x[j] : lo;
+    hi = j == q ? x[j + 1] : hi;
+  }
+  return ((uint64_t)__funnelshift_r(lo, hi, s & 31) << 30) | (x[0] & 0x3FFFFFFFu);
+}
+
+static __device__ __forceinline__ void fp_inv(fp &r, const fp &x) {
+  fp a = x, b, u, v;
+#pragma unroll
+  for (int j = 0; j < 12; j++) {
+    b.v[j] = FP_P[j];
+    u.v[j] = v.v[j] = 0;
+  }
+  u.v[0] = 1;
+#pragma unroll 1
+  for (int batch = 0; batch < INV_BATCHES; batch++) {
+    // n = max(len(a), len(b), 62), s = n - 32
+    uint32_t len = 0;
+#pragma unroll
+    for (int j = 0; j < 12; j++) {
+      const uint32_t w = a.v[j] | b.v[j];
+      len = w ? 32 * j + 32 - __clz(w) : len;
+    }
+    const uint32_t s = (len > 62 ? len : 62) - 32;
+    uint64_t A = inv_approx(a.v, s), B = inv_approx(b.v, s);
+    int32_t f0 = 1, g0 = 0, f1 = 0, g1 = 1;
+#pragma unroll
+    for (int k = 0; k < INV_STEPS; k++) {
+      // odd A: if A < B swap the pair (and the rows), then A -= B; halve A
+      const bool odd = A & 1, sw = odd & (A < B);
+      const uint64_t A1 = sw ? B : A, B1 = sw ? A : B;
+      const int32_t F0 = sw ? f1 : f0, G0 = sw ? g1 : g0, F1 = sw ? f0 : f1, G1 = sw ? g0 : g1;
+      A = (A1 - (odd ? B1 : 0)) >> 1;
+      B = B1;
+      f0 = F0 - (odd ? F1 : 0);
+      g0 = G0 - (odd ? G1 : 0);
+      f1 = 2 * F1;
+      g1 = 2 * G1;
+    }
+    fp na, nb, nu, nv;
+    const bool sa = inv_lin(na.v, a.v, b.v, f0, g0);
+    const bool sb = inv_lin(nb.v, a.v, b.v, f1, g1);
+    f0 = sa ? -f0 : f0;
+    g0 = sa ? -g0 : g0;
+    f1 = sb ? -f1 : f1;
+    g1 = sb ? -g1 : g1;
+    inv_lin_mod(nu, u, v, f0, g0);
+    inv_lin_mod(nv, u, v, f1, g1);
+    a = na;
+    b = nb;
+    u = nu;
+    v = nv;
+  }
+  fp r3;
+#pragma unroll
+  for (int j = 0; j < 12; j++) r3.v[j] = FP_R3[j];
+  fp_mul(r, v, r3);
 }

@@ -21,7 +21,10 @@
 //              their reductions, in fp_mul, in the slot stores and in the
 //              passes' __syncwarp, then its cycles in all.
 // Variants 0 to 4 write their chains' last values, for the caller to hold
-// against the plain chains. This file builds into a library of its own
+// against the plain chains. lh_inverse inverts n elements, a thread each,
+// iters times in a chain (x <- x^-1): variant 0 by the Fermat chain below,
+// the port's fp_inv before fq.cuh's binary GCD, variant 1 by that GCD (the
+// fp_inv of the path kernels). This file builds into a library of its own
 // (kernels.latency_library), apart from the kernels of the paths.
 #include "team.cuh"
 
@@ -71,6 +74,19 @@ static __device__ __forceinline__ void fp_mul_cios64(fp &r, const fp &a, const f
     t[12] = t13 + (uint32_t)(s >> 32);
   }
   fp_reduce_once64(r, t, t[12]);
+}
+
+// a^(p-2) = a^-1 (0 maps to 0): square-and-multiply over the bits of
+// p - 2, 381 squarings and 229 products in one dependent chain
+static __device__ __noinline__ void fp_inv_fermat(fp &r, const fp &a) {
+  fp acc;
+  fp_set_one(acc);
+  for (int i = 380; i >= 0; i--) {
+    fp_sqr(acc, acc);
+    const uint32_t w = FP_P[i >> 5] - (i < 32 ? 2u : 0u);   // p - 2 (p is odd: no borrow)
+    if ((w >> (i & 31)) & 1u) fp_mul(acc, acc, a);
+  }
+  r = acc;
 }
 
 // x <- x * y, iters times, from x[lane] and y[lane]
@@ -165,6 +181,36 @@ __global__ void latency_program(const int64_t *xs, int64_t *out, int iters) {
     slot_load(c, S, 6 * a + lane);
     fp_store(out + 24 * lane, c);
   }
+}
+
+// x <- x^-1, iters times, for the n elements of xs, a thread each
+template <bool FERMAT>
+__global__ void inverse_chain(const int64_t *xs, int64_t *out, int n, int iters) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  fp x;
+  fp_load(x, xs + 24 * i);
+  for (int k = 0; k < iters; k++) {
+    if (FERMAT)
+      fp_inv_fermat(x, x);
+    else
+      fp_inv(x, x);
+  }
+  fp_store(out + 24 * i, x);
+}
+
+extern "C" int lh_inverse(int variant, int n, int iters, const void *xs, void *out,
+                          void *stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int64_t *x = (const int64_t *)xs;
+  int64_t *o = (int64_t *)out;
+  const int blocks = (n + 31) / 32;
+  switch (variant) {
+    case 0: inverse_chain<true><<<blocks, 32, 0, st>>>(x, o, n, iters); break;
+    case 1: inverse_chain<false><<<blocks, 32, 0, st>>>(x, o, n, iters); break;
+    default: return -1;
+  }
+  return (int)cudaGetLastError();
 }
 
 // xs, ys: 32 elements each (int64 limbs); out: 32 elements

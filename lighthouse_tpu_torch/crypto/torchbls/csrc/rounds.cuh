@@ -11,10 +11,10 @@
 // In a slot program (run_program, miller.cu) a and b are slots, and linear
 // passes between the rounds form the sums and differences (x xi, x 3, x 8
 // and negation among them) and the final copies into the state. In a form
-// program (run_form_program, hard_part.cu) a and b index forms, short sums
-// of slots with small integer coefficients that the reading thread
-// evaluates (form_load): a product multiplies two forms, a COPY writes one,
-// so the sums between rounds take no pass of their own. The kernels include
+// program (run_form_program, hard_part.cu and easy_part.cu) a and b index
+// forms, short sums of slots with small integer coefficients that the
+// reading thread evaluates (form_load): a product multiplies two forms, a
+// COPY writes one, so the sums between rounds take no pass of their own. The kernels include
 // the generated tables they run (round_programs.cuh, team_programs.cuh)
 // themselves; form_load's RND_FORM_RECIP comes with bls_consts.cuh.
 #pragma once

@@ -20,9 +20,10 @@ Kernel, source, and the TPU kernel (or XLA function) it replaces:
   final_exp_easy_part  csrc/easy_part.cu    pairing_ops.py:296 final_exponentiation
                                             (its easy part, kept in XLA there)
 (pallas_ops.py and pairing_ops.py are under lighthouse_tpu/crypto/jaxbls/.)
-csrc/latency.cu (lh_product_latency) times chains of Fq products and team
-levels for chip_smoke.py's product_latency phase; no path launches it, and
-it builds into a library of its own (latency_library).
+csrc/latency.cu (lh_product_latency, lh_inverse) times chains of Fq
+products, team levels and Fq inversions (the Fermat chain against fq.cuh's
+binary GCD) for chip_smoke.py's product_latency phase; no path launches it,
+and it builds into a library of its own (latency_library).
 """
 
 from __future__ import annotations
@@ -47,6 +48,10 @@ from . import tower as tw
 
 NL = lb.NL
 CSRC = Path(__file__).resolve().parent / "csrc"
+# fq.cuh's fp_inv, a binary GCD: batches of INV_STEPS divsteps on 62-bit
+# approximations, 2 * 381 - 1 divsteps in all, rounded up to whole batches
+INV_STEPS = 30
+INV_BATCHES = -(-(2 * P.bit_length() - 1) // INV_STEPS)
 SOURCES = ("fq_mont_mul.cu", "prepare.cu", "pairs.cu", "miller.cu", "hard_part.cu", "h2c.cu",
            "easy_part.cu")
 
@@ -91,9 +96,12 @@ def consts_header() -> str:
         # rounds.cuh's form_load (the same definition as round_programs.cuh's)
         f"#define RND_FORM_RECIP 0x{rounds.FORM_RECIP:016x}ull",
         _c_array("FP_P", _words32(lb.N_HOST)),
-        _c_array("FP_PM2", _words32(lb.pack(P - 2))),
         _c_array("FP_ONE", _words32(lb.ONE_MONT)),
         _c_array("FP_R2", _words32(lb.R2_HOST)),
+        # fq.cuh's fp_inv: its batches, and R^3 for its last product
+        f"#define INV_STEPS {INV_STEPS}",
+        f"#define INV_BATCHES {INV_BATCHES}",
+        _c_array("FP_R3", _words32(lb.pack(pow(lb.R_MONT, 3, P)))),
         # psi's coefficients for h2c.cu's cofactor clearing (curve_ops'
         # tables; the SWU map's constants are in team_programs.cuh)
         _c_table("PSI_CX", co._PSI_CX),
@@ -122,6 +130,8 @@ def latency_library() -> torchcfg.KernelLibrary:
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     kl.lib.lh_product_latency.argtypes = [i32, i32, vp, vp, vp, vp]
     kl.lib.lh_product_latency.restype = i32
+    kl.lib.lh_inverse.argtypes = [i32, i32, i32, vp, vp, vp]
+    kl.lib.lh_inverse.restype = i32
     return kl
 
 

@@ -16,7 +16,9 @@ design. There are two kinds of schedule:
   in-place program's outputs into its state;
 - `FormProgram` (the final exponentiation's hard part, csrc/hard_part.cu:
   the Granger-Scott cyclotomic squaring, the product by the chain's base,
-  and the link programs between the five |x|-exponentiations): every
+  and the link programs between the five |x|-exponentiations; its easy
+  part, csrc/easy_part.cu: the Fq12 inversion's norm chain down to Fq and
+  the way back up, around one thread's Fq inversion): every
   operand is a *form*, a short sum of slots with small integer
   coefficients that the reading thread evaluates itself, so a program is
   its rounds of products of two forms and one pass that writes each output
@@ -695,6 +697,76 @@ def hard_work() -> dict:
             "passes": sum(len(p.passes) for p in seq)}
 
 
+# ------------------------------------------------- the final exponentiation's easy part
+
+# The easy part's state, one slot per Fq: the Miller value m, the
+# p^2-Frobenius coefficient block, the adjugate c of tower.fq6_inv (three
+# Fq2), the Fq2 element T that fq6_inv inverts, T's Fq norm and its
+# inverse, and the result.
+EASY_STATE = ([f"m_{k}" for k in range(12)] + [f"frob2_{k}" for k in range(12)]
+              + [f"c_{k}" for k in range(6)] + ["T_0", "T_1", "norm", "ninv"]
+              + [f"out_{k}" for k in range(12)])
+
+
+def _easy_program(name, build) -> FormProgram:
+    """A form program over EASY_STATE; `build(v, zero)`, v the state's
+    inputs by name, returns {state name: node} for the slots it writes."""
+    t = Tracer()
+    ins = [t.input(n) for n in EASY_STATE]
+    v = dict(zip(EASY_STATE, ins))
+    zero = t.input("zero")
+    return FormProgram(name, t, ins,
+                       [(EASY_STATE.index(k), x) for k, x in build(v, zero).items()])
+
+
+def _easy_norm(v, zero):
+    """m -> the Fq norm of tower.fq12_inv's chain, by tower.fq12_inv's,
+    fq6_inv's and fq2_inv's formulas: t = a0^2 - v a1^2 (Fq6), its adjugate
+    c and T = t0 c0 + xi (t1 c2 + t2 c1) (Fq2), then T0^2 + T1^2."""
+    a0, a1 = _f12([v[f"m_{k}"] for k in range(12)])
+    t = f6_sub(f6_mul(a0, a0), f6_mul_by_v(f6_mul(a1, a1)))
+    sq = [f2_sqr(x) for x in t]
+    p01, p12, p20 = f2_mul(t[0], t[1]), f2_mul(t[1], t[2]), f2_mul(t[2], t[0])
+    c = (f2_sub(sq[0], f2_mul_by_xi(p12)), f2_sub(f2_mul_by_xi(sq[2]), p01), f2_sub(sq[1], p20))
+    T = f2_add(f2_mul(t[0], c[0]), f2_mul_by_xi(f2_add(f2_mul(t[1], c[2]), f2_mul(t[2], c[1]))))
+    out = {f"c_{k}": x for k, x in enumerate(_flat(c))}
+    out.update(T_0=T[0], T_1=T[1], norm=T[0] * T[0] + T[1] * T[1])
+    return out
+
+
+def _easy_up(v, zero):
+    """The way back up from the norm's inverse: T^-1, t^-1 = c T^-1,
+    m^-1 = (a0 t^-1, -a1 t^-1); then conj(m) m^-1 = m^(p^6 - 1) and its
+    product with its p^2-Frobenius (pairing_ops.final_exp_easy_part)."""
+    m = _f12([v[f"m_{k}"] for k in range(12)])
+    c = [_f2([v[f"c_{k}"] for k in range(6)], 2 * j) for j in range(3)]
+    ninv = v["ninv"]
+    T_inv = (v["T_0"] * ninv, zero - v["T_1"] * ninv)
+    t_inv = tuple(f2_mul(x, T_inv) for x in c)
+    m_inv = (f6_mul(m[0], t_inv), tuple(f2_neg(x, zero) for x in f6_mul(m[1], t_inv)))
+    t = f12_mul(f12_conj(m, zero), m_inv)
+    frob = f12_frobenius(t, 2, [v[f"frob2_{k}"] for k in range(12)], _FROB_VALUES[2], zero)
+    return {f"out_{k}": x for k, x in enumerate(_flat(f12_mul(frob, t)))}
+
+
+@functools.lru_cache(maxsize=None)
+def easy_programs() -> dict:
+    """csrc/easy_part.cu's form programs, run in this order with the norm's
+    inversion between them: the norm chain down, and the way back up."""
+    return {"norm": _easy_program("easy_norm", _easy_norm),
+            "up": _easy_program("easy_up", _easy_up)}
+
+
+def easy_work() -> dict:
+    """final_exp_easy_part's kernel: its form programs' Fq products,
+    dependent product rounds and passes (one block barrier each; the
+    inversion between them is one more)."""
+    progs = easy_programs().values()
+    return {"kernel_fq_products": sum(p.products for p in progs),
+            "product_rounds": sum(p.product_rounds for p in progs),
+            "passes": sum(len(p.passes) for p in progs)}
+
+
 # ------------------------------------------------------------ the header
 
 
@@ -712,13 +784,48 @@ def _op_words(passes) -> tuple:
     return words, offsets
 
 
+def _form_tables(prefix: str, progs: dict) -> list:
+    """A family of form programs as one table each of op words, pass
+    offsets, forms (offsets into the terms, which are global to the family)
+    and terms, and every program's offsets into the first three and its
+    pass count ({prefix}_PROG_*, in the dict's order)."""
+    ops, passes, forms, terms, cols, lines = [], [], [], [], [], []
+    for k, (name, prog) in enumerate(progs.items()):
+        words, offsets = _op_words(prog.passes)
+        cols.append((len(ops), len(passes), len(forms), len(prog.passes)))
+        ops += words
+        passes += offsets
+        forms += [len(terms) + f for f in prog.forms]
+        terms += [((c & 0xFFFF) << 16) | (TERM_LAST if last else 0) | s for s, c, last in prog.terms]
+        lines.append(f"// {prefix} program {k}, {name}: {prog.products} products in "
+                     f"{prog.product_rounds} rounds, {len(prog.passes)} passes, "
+                     f"{len(prog.terms)} terms, {prog.slots} slots")
+    if len(terms) > 1 << 16:
+        raise ValueError(f"{len(terms)} terms do not fit {prefix}_FORMS' 16-bit offsets")
+    cols = list(zip(*cols))
+    return lines + [
+        f"#define {prefix}_SLOTS {max(p.slots for p in progs.values())}",
+        f"#define {prefix}_NOPS {len(ops)}",
+        f"#define {prefix}_NPASS {len(passes)}",
+        f"#define {prefix}_NFORMS {len(forms)}",
+        f"#define {prefix}_NTERMS {len(terms)}",
+        _c_words("uint32_t", f"{prefix}_OPS", ops),
+        _c_words("uint16_t", f"{prefix}_PASS", passes),
+        _c_words("uint16_t", f"{prefix}_FORMS", forms),
+        _c_words("uint32_t", f"{prefix}_TERMS", terms),
+        _c_words("uint16_t", f"{prefix}_PROG_OPS", cols[0]),
+        _c_words("uint16_t", f"{prefix}_PROG_PASS", cols[1]),
+        _c_words("uint16_t", f"{prefix}_PROG_FORMS", cols[2]),
+        _c_words("uint16_t", f"{prefix}_PROG_NPASSES", cols[3]),
+    ]
+
+
 def header() -> str:
     """round_programs.cuh, for csrc/rounds.cuh: each Miller program's
     operation words, pass offsets and slot layout (MR_*); the hard part's
-    programs (HP_*) as one table each of words, pass offsets, forms (offsets
-    into the terms, which are global) and terms, with every program's
-    offsets into the first three, its sequence of programs and its
-    state layout; the constant of form_load's reduction."""
+    form programs (HP_*, `_form_tables`) with its sequence of programs and
+    its state layout; the easy part's (EP_*) with its state layout; the
+    constant of form_load's reduction."""
     progs = programs()
     lines = ["// generated by lighthouse_tpu_torch.crypto.torchbls.rounds.header",
              "#pragma once", "#include <stdint.h>"]
@@ -739,41 +846,23 @@ def header() -> str:
     for k, name in enumerate(MILLER_STATE):
         lines.append(f"#define MR_SLOT_{name.upper()} {k}")
     hard = hard_programs()
-    ops, passes, forms, terms, index = [], [], [], [], {}
-    for k, (name, prog) in enumerate(hard.items()):
-        words, offsets = _op_words(prog.passes)
-        index[name] = (k, len(ops), len(passes), len(forms), len(prog.passes))
-        ops += words
-        passes += offsets
-        forms += [len(terms) + f for f in prog.forms]
-        terms += [((c & 0xFFFF) << 16) | (TERM_LAST if last else 0) | s for s, c, last in prog.terms]
-        lines.append(f"// HP program {k}, {name}: {prog.products} products in "
-                     f"{prog.product_rounds} rounds, {len(prog.passes)} passes, "
-                     f"{len(prog.terms)} terms, {prog.slots} slots")
-    if len(terms) > 1 << 16:
-        raise ValueError(f"{len(terms)} terms do not fit HP_FORMS' 16-bit offsets")
-    cols = list(zip(*index.values()))
+    lines += _form_tables("HP", hard)
     seq = hard_sequence()
+    index = {name: k for k, name in enumerate(hard)}
     lines += [
-        f"#define HP_SLOTS {max(p.slots for p in hard.values())}",
         f"#define HP_STATE_SLOTS {len(HARD_STATE)}",
-        f"#define HP_NOPS {len(ops)}",
-        f"#define HP_NPASS {len(passes)}",
-        f"#define HP_NFORMS {len(forms)}",
-        f"#define HP_NTERMS {len(terms)}",
         f"#define HP_SEQ_LEN {len(seq)}",
         f"#define HP_OUT {HARD_OUT}",
-        _c_words("uint32_t", "HP_OPS", ops),
-        _c_words("uint16_t", "HP_PASS", passes),
-        _c_words("uint16_t", "HP_FORMS", forms),
-        _c_words("uint32_t", "HP_TERMS", terms),
-        _c_words("uint16_t", "HP_PROG_OPS", cols[1]),
-        _c_words("uint16_t", "HP_PROG_PASS", cols[2]),
-        _c_words("uint16_t", "HP_PROG_FORMS", cols[3]),
-        _c_words("uint16_t", "HP_PROG_NPASSES", cols[4]),
-        _c_words("uint8_t", "HP_SEQ", [index[s][0] for s in seq]),
+        _c_words("uint8_t", "HP_SEQ", [index[s] for s in seq]),
     ]
     for k, area in enumerate(HARD_AREAS):
         lines.append(f"#define HP_AREA_{area.upper()} {12 * k}")
+    easy = easy_programs()
+    lines += _form_tables("EP", easy)
+    lines += [f"#define EP_{name.upper()} {k}" for k, name in enumerate(easy)]
+    lines += [f"#define EP_SLOT_{area} {EASY_STATE.index(first)}"
+              for area, first in (("M", "m_0"), ("FROB2", "frob2_0"), ("NORM", "norm"),
+                                  ("NINV", "ninv"), ("OUT", "out_0"))]
+    lines.append(f"#define EP_STATE_SLOTS {len(EASY_STATE)}")
     lines.append(f"#define RND_FORM_RECIP 0x{FORM_RECIP:016x}ull")
     return "\n".join(lines) + "\n"

@@ -1,10 +1,11 @@
 """Distinct-message AggregateVerify and the EF BLS vectors on the port's CPU
 backend: `backend.aggregate_pairs` against the JAX backend's
-`_aggregate_kernel` bit for bit at n = 4, three EF vectors (av_ok,
-verify_wrong_msg, bv_one_bad) through `testing/ef_bls.py` with
-TorchBackend(device="cpu") active, the vector reader against PyYAML on all
-15 vectors, and the API's AggregateVerify guards. The other vectors run on
-the card (chip_smoke.py). Tolerance: exact equality.
+`_aggregate_kernel` bit for bit at n = 4 (a hashed message at the identity
+among the lanes), three EF vectors (av_ok, verify_wrong_msg, bv_one_bad)
+through `testing/ef_bls.py` with TorchBackend(device="cpu") active, the
+vector reader against PyYAML on all 15 vectors, and the API's
+AggregateVerify guards. The other vectors run on the card (chip_smoke.py).
+Tolerance: exact equality.
 """
 
 from pathlib import Path
@@ -54,10 +55,13 @@ def test_aggregate_pairs_matches_jax():
     pk_y[:3] = TB.pack_ints_vec([p[1] for p in pks])
     mask = np.array([1, 1, 1, 0], np.uint32)
     sig_xy = TB.pack_ints_vec([sig[0][0], sig[0][1], sig[1][0], sig[1][1]]).reshape(2, 2, 24)
-    # hashed messages, the padding lane's u = 0 among them
+    # hashed messages, the padding lane's u = 0 among them, and lane 1 made
+    # the identity (Z = 0): its pair is masked and keeps its X and Y
     us = np.zeros((4, 2, 2, 24), np.uint32)
     us[:3] = TB.h2.hash_to_field_batch([b"\x01" * 32, b"\x02" * 32, b"\x03" * 32], TB.DST_POP)
     h_jac = TB.stage_h2c(ix.to_torch(us))
+    h_jac = (h_jac[0], h_jac[1], h_jac[2].clone())
+    h_jac[2][1] = 0
 
     got = TB.aggregate_pairs(*ix.to_torch([pk_x, pk_y, mask, sig_xy]), h_jac)
     jbe._init_consts()

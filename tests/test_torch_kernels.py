@@ -218,6 +218,64 @@ def test_stage_prepare_at_the_path_buckets(n, m, cuda):
     assert_same(got, K.stage_prepare_plain(*dev_args))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4, 16, 32, 64])
+def test_stage_pairs_across_warp_edges(n, cuda):
+    """stage_pairs (a thread per Z lane, a warp of 32 in step) at n = 4, 16,
+    32 and 64: 9, 33, 65 and 129 lanes, one warp and a lane past whole
+    warps. A G1 and a G2 lane at the identity (Z = 0), a G1 lane, a G2
+    lane and the signature with Z = Montgomery one (AggregateVerify's
+    lanes), a masked set: equal to the plain version."""
+    zp, hj, sa, mask = pairs_args(n, seed=40 + n)
+    one = torch.as_tensor(TL.ONE_MONT.astype(np.int64))
+    zp[2][2] = one
+    hj[2][0] = 0
+    hj[2][3] = 0
+    hj[2][3, 0] = one
+    sa[2][:] = 0
+    sa[2][0] = one
+    args = (zp, hj, sa, mask)
+    before = K.stage_pairs.launches
+    got = K.stage_pairs(*to_dev(args, cuda))
+    torch.cuda.synchronize()
+    assert K.stage_pairs.launches == before + 1
+    assert_same(got, K.stage_pairs_plain(*args))
+
+
+@pytest.mark.cuda
+def test_easy_part_on_seeded_and_half_zero_elements(cuda):
+    """final_exp_easy_part (form programs around one thread's inversion) on
+    three seeded Fq12 and on two with a zero Fq6 half: equal to the plain
+    version."""
+    ms = [rand_limbs(50 + s, (2, 3, 2)) for s in range(5)]
+    ms[3][1] = 0
+    ms[4][0] = 0
+    for m in ms:
+        assert_same(K.final_exp_easy_part(m.to(cuda)), K.final_exp_easy_part(m))
+
+
+@pytest.mark.cuda
+def test_fq_inversion_on_the_card(cuda):
+    """fq.cuh's binary-GCD fp_inv (csrc/latency.cu's lh_inverse, variant 1)
+    and the Fermat chain it replaced (variant 0) on seeded elements and the
+    edges 0, 1, p - 1, p - 2, R mod p, R^2 mod p, 2^380, (2^381 - k) mod p:
+    both equal to the plain limbs.mont_inv, across two warps."""
+    r = (1 << 384) % P
+    edges = [0, 1, P - 1, P - 2, r, r * r % P, 1 << 380] + [((1 << 381) - k) % P
+                                                           for k in (1, 2, 3)]
+    x = torch.cat([rand_limbs(60, (54,)),
+                   torch.as_tensor(np.stack([TL.pack(v) for v in edges]).astype(np.int64))])
+    lib = K.latency_library().lib
+    xd = x.to(cuda)
+    want = TL.mont_inv(x)
+    for variant in (0, 1):
+        out = torch.empty_like(xd)
+        assert lib.lh_inverse(variant, x.shape[0], 1, xd.data_ptr(), out.data_ptr(),
+                              torch.cuda.current_stream().cuda_stream) == 0
+        torch.cuda.synchronize()
+        assert_same(out, want)
+
+
 @pytest.mark.parametrize("name", ["fq_mont_mul", "final_exp_hard_part", "hash_to_g2",
                                   "final_exp_easy_part", "miller_loop_batch"])
 def test_cpu_tensors_take_the_plain_version(name):
@@ -243,6 +301,10 @@ def test_consts_header_carries_the_field_constants():
     assert sum(w << (32 * i) for i, w in enumerate(words)) == P
     assert text.count("FROB1[6][2][12]") == text.count("FROB2[6][2][12]") == 1
     assert "PSI_CX[2][12]" in text and "PSI_CY[2][12]" in text
+    r3 = [int(w, 16) for w in re.search(r"FP_R3\[12\] = \{([^}]*)\}", text).group(1)
+          .replace("u", "").split(",")]
+    assert sum(w << (32 * i) for i, w in enumerate(r3)) == pow(1 << 384, 3, P)   # R^3 mod p
+    assert "FP_PM2" not in text      # the Fermat chain is latency.cu's baseline alone
 
 
 KERNEL_NAMES = ["final_exp_easy_part", "final_exp_hard_part", "fq_mont_mul", "hash_to_g2",

@@ -1,6 +1,7 @@
-"""The product-round schedules of csrc/miller.cu and csrc/hard_part.cu
-(torchbls.rounds): the tables the kernels run, executed here on Python
-integers with the card's parallel semantics, against the plain versions.
+"""The product-round schedules of csrc/miller.cu, csrc/hard_part.cu and
+csrc/easy_part.cu (torchbls.rounds): the tables the kernels run, executed
+here on Python integers with the card's parallel semantics, against the
+plain versions.
 Tolerance: exact equality of every Fq coefficient (Montgomery form).
 """
 
@@ -194,6 +195,39 @@ def test_hard_part_sequence_matches_the_plain_hard_part():
         assert area_of(slots, "a1") == want
 
 
+def easy_part(m):
+    """easy_part.cu's sequence on the 12 Fq coefficients of m: the state
+    (m, the p^2-Frobenius coefficients, junk elsewhere, so a read before a
+    write would show), EP_NORM, the norm's inverse (one thread's fp_inv:
+    x^-1 R^2 in Montgomery form, 0 for 0), EP_UP; returns the out area."""
+    progs, st = R.easy_programs(), R.EASY_STATE
+    slots = [12345] * max(p.slots for p in progs.values())
+    slots[st.index("m_0"):st.index("m_0") + 12] = m
+    frob = [TL.unpack(c) for c in TW.FROB12_COEFF[2].reshape(12, TL.NL)]
+    slots[st.index("frob2_0"):st.index("frob2_0") + 12] = frob
+    run(progs["norm"], None, slots)
+    slots[st.index("ninv")] = pow(slots[st.index("norm")], P - 2, P) * pow(1 << 384, 2, P) % P
+    run(progs["up"], None, slots)
+    return slots[st.index("out_0"):st.index("out_0") + 12]
+
+
+@pytest.mark.parametrize("case", ["seeded", "zero_w_half", "zero_first_half", "one"])
+def test_easy_part_programs_match_the_plain_easy_part(case):
+    """The norm program, the inversion and the way back up, as
+    easy_part.cu runs them, on a seeded Fq12, on ones with a zero Fq6 half
+    and on 1: equal to pairing_ops.final_exp_easy_part."""
+    rng = np.random.default_rng(22)
+    m = fq_values(rng, 12)
+    if case == "zero_w_half":
+        m[6:] = [0] * 6
+    elif case == "zero_first_half":
+        m[:6] = [0] * 6
+    elif case == "one":
+        m = [TL.R_MONT % P] + [0] * 11
+    want = TP.final_exp_easy_part(limbs(m, (2, 3, 2)))
+    assert easy_part(m) == coefficients(want)
+
+
 def test_form_programs_cut_the_linear_passes():
     """Traced as a slot program (two-operand linear passes and a COPY pass
     into the state, as the Miller programs are), the squaring takes 11
@@ -226,14 +260,19 @@ def test_form_reduction_quotient_is_at_most_one_short():
 @pytest.mark.parametrize("name,products,rounds", [("dbl", 106, 4), ("add", 79, 5),
                                                   ("fq12_mul", 54, 1), ("sqr0", 18, 1),
                                                   ("sqr1", 18, 1), ("mul0", 54, 1),
-                                                  ("mul1", 54, 1)])
+                                                  ("mul1", 54, 1), ("easy_norm", 62, 4),
+                                                  ("easy_up", 165, 6)])
 def test_programs_are_product_rounds_over_a_block(name, products, rounds):
     """Each program does the plain formula's Fq products (Fq12 squaring 36,
     doubling step 31, sparse line product 39; addition step 40; dense
     product 54; the hard part's cyclotomic squaring 18 and product by the
-    base 54) in its product depth of rounds, no pass wider than a block of
-    64 threads, in slots that fit the 10-bit fields of an op word."""
-    prog = {**R.programs(), **R.hard_programs()}[name]
+    base 54; the easy part's norm chain 62, down through two Fq6 squares,
+    the adjugate and T's norm, and its way back up 165, up through T^-1,
+    t^-1, m^-1, two dense products and a p^2-Frobenius) in its product
+    depth of rounds, no pass wider than a block of 64 threads, in slots
+    that fit the 10-bit fields of an op word."""
+    easy = {f"easy_{k}": p for k, p in R.easy_programs().items()}
+    prog = {**R.programs(), **R.hard_programs(), **easy}[name]
     assert (prog.products, prog.product_rounds) == (products, rounds)
     assert prog.widest() <= 64
     assert prog.slots < 1 << R.SLOT_BITS
@@ -266,6 +305,13 @@ def test_header_carries_every_program():
     assert f"HP_FORMS[{sum(len(p.forms) for p in hard.values())}]" in text
     assert f"HP_TERMS[{sum(len(p.terms) for p in hard.values())}]" in text
     assert "#define HP_OUT 36" in text and f"RND_FORM_RECIP 0x{R.FORM_RECIP:016x}ull" in text
+    easy = R.easy_programs()
+    assert f"EP_PROG_NPASSES[{len(easy)}]" in text and "#define EP_UP 1" in text
+    assert f"EP_TERMS[{sum(len(p.terms) for p in easy.values())}]" in text
+    for area in ("M", "FROB2", "NORM", "NINV", "OUT"):
+        assert f"#define EP_SLOT_{area} " in text
+    assert R.easy_work() == {"kernel_fq_products": 62 + 165, "product_rounds": 4 + 6,
+                             "passes": 5 + 7}
     # five chains of 68 one-round, two-pass steps; the links 7 rounds, 12
     # passes, seven dense products, t^2 (36), frob(y1, 1) (13: the
     # coefficient 1 dropped, one in Fq, one in u Fq) and frob(y2, 2) (10:
