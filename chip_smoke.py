@@ -9,12 +9,19 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
   1. device and build: nvidia-smi name and power limit, torch/CUDA
      versions, the nvcc build of csrc/*.cu and ptxas's registers/spills;
   2. field self-test: the fq_mont_mul kernel against the plain mont_mul on
-     2^20 seeded random elements and every pair of edge operands
-     (torch.equal); product_latency: csrc/latency.cu's chains of dependent
-     Fq products, team levels and Fq inversions (the Fermat chain against
-     fq.cuh's binary GCD, one thread and a warp), each held against its
-     plain chain; inverse: the binary GCD against the Fermat chain on 2^16
-     seeded random elements and the edge inputs (the count that differ);
+     2^20 seeded random elements and every pair of edge operands, and by
+     R^2 (the Montgomery conversion) on 2^20 of them (torch.equal); the
+     field sweep: a * b at 130, 2^14, 2^20 and 2^22 seeded elements, each
+     equal to the plain version, with its CUDA-event ms, that of a torch op
+     moving the same bytes, and its three floors (the interchange's 192
+     bytes an element over HBM's rate, the 48 bytes an element holds, the
+     products' IMADs over the integer rate; device ms and the share of the
+     interchange floor reached come from the profiler at the end);
+     product_latency: csrc/latency.cu's chains of dependent Fq products,
+     team levels and Fq inversions (the Fermat chain against fq.cuh's
+     binary GCD, one thread and a warp), each held against its plain chain;
+     inverse: the binary GCD against the Fermat chain on 2^16 seeded random
+     elements and the edge inputs (the count that differ);
   3. each kernel against its plain version on the card (torch.equal), on
      the real stage data of the 64 x 128 gossip batch, the 512-key sync
      aggregate and the one-key urgent verify, with its time (CUDA events),
@@ -43,8 +50,11 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
      against the pure-Python RFC 9380 map, and each kernel's device time
      from torch.profiler at the three buckets (prepare's three launches
      apart), beside phase 3's CUDA-event times, which take in the host's
-     time where a wrapper's Python outlasts its kernel.
-The last two lines are the kernel table and the device line.
+     time where a wrapper's Python outlasts its kernel; then fq_mont_mul's
+     device time at each size of the field phase.
+The last two lines are the kernel table and the device line. To time
+another checkout's kernels with this script, copy it into that checkout's
+root and run it there.
 """
 
 from __future__ import annotations
@@ -59,6 +69,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURES = os.path.join(ROOT, "bench_fixtures.npz")
 N_SETS, N_PKS = 64, 128          # gossip batch cap x target committee size
 FIELD_N = 1 << 20
+FIELD_SIZES = (130, 1 << 14, 1 << 20, 1 << 22)    # a * b sizes of the field sweep
+INTERCHANGE_BYTES = 192           # an Fq element as the port passes it: 24 int64 limbs
+ELEMENT_BYTES = 48                # the 381 bits it holds, as 12 32-bit words
 LATENCY_ITERS = 4096              # dependent products per chain in product_latency
 VERIFY_REPEATS = 3                # verifies of the valid batch; the median is reported
 PIPELINED = 8                     # submissions of the pipelined phase
@@ -300,6 +313,16 @@ def fq_products_easy_part() -> int:
     return 4 * 18 + (3 * 2 + 9 * 3) + (4 + 1) + 2 * 54 + 6 * 3
 
 
+def field_floors(n: int, operands: int) -> dict:
+    """The floors of n Montgomery products with `operands` inputs (1: by
+    R^2) and one output, ms: the interchange's bytes and the elements' 48
+    bytes over HBM's rate, and the IMADs over the integer rate."""
+    moved = (operands + 1) * n
+    return {"interchange_ms": moved * INTERCHANGE_BYTES / HBM_BYTES_PER_S * 1e3,
+            "bytes48_ms": moved * ELEMENT_BYTES / HBM_BYTES_PER_S * 1e3,
+            "imad_ms": n * IMAD_PER_FQ_MUL / INT32_PER_S * 1e3}
+
+
 def bound_ms(fq_products: int, bytes_moved: int, int_ops: int = 0) -> tuple[float, str]:
     """The larger of the bytes over HBM's rate and the integer instructions
     (each Fq product's IMADs, and int_ops more) over the integer rate."""
@@ -467,7 +490,7 @@ def inverse_check(dev) -> dict:
 
 # each wrapper's hand-written kernels, by the names torch.profiler gives them
 KERNEL_FUNCTIONS = {
-    "fq_mont_mul": ("fq_mont_mul_kernel",),
+    "fq_mont_mul": ("fq_mont_mul_kernel", "fq_to_mont_kernel"),
     "stage_prepare": ("prepare_aggregate", "prepare_scale", "prepare_sig_sum"),
     "stage_pairs": ("pairs_kernel",),
     "miller_loop_product": ("miller_batch_kernel", "tree_level_kernel"),
@@ -506,6 +529,95 @@ def profile_ms(name, args, reps: int = 3) -> dict:
         elif getattr(ev, "device_type", None) == DeviceType.CUDA:
             other += dev_us / 1e3 / reps
     return {"kernel_ms": sum(ours.values()), "split": ours, "wrapper_torch_ms": other}
+
+
+# ------------------------------------------------------------ field phase
+
+
+def random_elements(gen, n: int, dev):
+    """n seeded random Fq elements below p, as (n, NL) int64 limbs."""
+    import torch
+
+    from lighthouse_tpu_torch.crypto.torchbls import limbs as lb
+
+    x = torch.randint(0, 1 << 16, (n, lb.NL), generator=gen, device=dev)
+    x[:, -1] = torch.randint(0, 0x1A01, (n,), generator=gen, device=dev)    # < p
+    return x
+
+
+def plain_in_chunks(a, b=None, chunk: int = 65536):
+    """fq_mont_mul's plain version over chunks of rows (its intermediates
+    grow with the rows)."""
+    import torch
+
+    from lighthouse_tpu_torch.crypto.torchbls import kernels as K
+
+    return torch.cat([K.fq_mont_mul_plain(a[i:i + chunk], None if b is None else b[i:i + chunk])
+                      for i in range(0, a.shape[0], chunk)])
+
+
+def field_phase(dev) -> list:
+    """fq_mont_mul against its plain version: a * b on FIELD_N seeded
+    random pairs and every pair of the edge operands, by R^2 on FIELD_N
+    elements, and a * b at each of FIELD_SIZES (prefixes of the seeded
+    pairs); each case's CUDA-event ms and floors, beside the CUDA-event ms
+    of one torch op that moves the same bytes (torch.add of the operands; a
+    clone by R^2): the rate the card's memory gives a plain streaming op.
+    Returns the cases, (form, n, args), for the device times at the end."""
+    import numpy as np
+    import torch
+
+    from lighthouse_tpu_torch.crypto.bls381.constants import P
+    from lighthouse_tpu_torch.crypto.torchbls import kernels as K
+    from lighthouse_tpu_torch.crypto.torchbls import limbs as lb
+
+    gen = torch.Generator(device=dev).manual_seed(20261016)
+    big = max(FIELD_SIZES)
+    xs, ys = random_elements(gen, big, dev), random_elements(gen, big, dev)
+    # every pair of the edge operands: 0, 1, p - 1, p - 2, R mod p, R^2 mod
+    # p, (2^381 - k) mod p (inputs are fully reduced)
+    r_mont = (1 << 384) % P
+    edges = [0, 1, P - 1, P - 2, r_mont, r_mont * r_mont % P] + [((1 << 381) - k) % P
+                                                                  for k in (1, 2, 3)]
+    e = torch.as_tensor(np.stack([lb.pack(v) for v in edges]).astype(np.int64), device=dev)
+    ne = len(edges)
+    a = torch.cat([xs[:FIELD_N], e.repeat_interleave(ne, dim=0)])
+    b = torch.cat([ys[:FIELD_N], e.repeat(ne, 1)])
+    field_equal = torch.equal(K.fq_mont_mul(a, b), plain_in_chunks(a, b))
+    r2 = xs[:FIELD_N]
+    r2_equal = torch.equal(K.fq_mont_mul(r2), plain_in_chunks(r2))
+    emit({"phase": "field", "n": FIELD_N, "edge_pairs": ne * ne, "equal": field_equal,
+          "ms": cuda_ms(lambda: K.fq_mont_mul(a, b), 10), "r2_n": FIELD_N, "r2_equal": r2_equal})
+    if not (field_equal and r2_equal):
+        raise SystemExit("fq_mont_mul disagrees with the plain mont_mul")
+
+    sweep = [("a*b", n, (xs[:n], ys[:n])) for n in FIELD_SIZES]
+    sweep_equal = [torch.equal(K.fq_mont_mul(*args), plain_in_chunks(*args)) for _f, _n, args in sweep]
+    cases = [("a*b", a.shape[0], (a, b)), ("r2", FIELD_N, (r2,))] + sweep
+    rows = []
+    for form, n, args in cases:
+        ms = cuda_ms(lambda: K.fq_mont_mul(*args), 20)
+        # a plain elementwise op over the same bytes: what streaming gets
+        stream_ms = cuda_ms((lambda: torch.add(*args)) if len(args) == 2 else args[0].clone, 20)
+        floors = field_floors(n, len(args))
+        rows.append({"form": form, "n": n, "ms": ms, "stream_ms": stream_ms, **floors,
+                     "share_of_interchange_floor": floors["interchange_ms"] / ms})
+    emit({"phase": "field_sizes", "sweep_equal": sweep_equal, "cases": rows})
+    if not all(sweep_equal):
+        raise SystemExit("fq_mont_mul disagrees with the plain mont_mul in the field sweep")
+    return cases
+
+
+def emit_field_device_ms(cases) -> None:
+    """fq_mont_mul's device ms (torch.profiler) at each case of the field
+    phase, beside its floors."""
+    rows = []
+    for form, n, args in cases:
+        d = profile_ms("fq_mont_mul", args)
+        floors = field_floors(n, len(args))
+        rows.append({"form": form, "n": n, "device_ms": d["kernel_ms"], "split": d["split"],
+                     **floors, "share_of_interchange_floor": floors["interchange_ms"] / d["kernel_ms"]})
+    emit({"phase": "field_device_ms", "cases": rows})
 
 
 # ------------------------------------------------------------ phases
@@ -552,30 +664,8 @@ def main() -> int:
           "latency_library": os.path.relpath(str(lat.path), ROOT),
           "latency_ptxas": ptxas_summary(lat.ptxas_log)})
 
-    # 2. field self-test ---------------------------------------------------
-    gen = torch.Generator(device=dev).manual_seed(20261016)
-    a = torch.randint(0, 1 << 16, (FIELD_N, lb.NL), generator=gen, device=dev)
-    b = torch.randint(0, 1 << 16, (FIELD_N, lb.NL), generator=gen, device=dev)
-    a[:, -1] = torch.randint(0, 0x1A01, (FIELD_N,), generator=gen, device=dev)  # < p
-    b[:, -1] = torch.randint(0, 0x1A01, (FIELD_N,), generator=gen, device=dev)
-    # every pair of the edge operands: 0, 1, p - 1, p - 2, R mod p, R^2 mod
-    # p, (2^381 - k) mod p (inputs are fully reduced)
-    R_MONT = (1 << 384) % P
-    edges = [0, 1, P - 1, P - 2, R_MONT, R_MONT * R_MONT % P] + [((1 << 381) - k) % P
-                                                                  for k in (1, 2, 3)]
-    e = torch.as_tensor(np.stack([lb.pack(v) for v in edges]).astype(np.int64), device=dev)
-    ne = len(edges)
-    a = torch.cat([a, e.repeat_interleave(ne, dim=0)])
-    b = torch.cat([b, e.repeat(ne, 1)])
-    got = K.fq_mont_mul(a, b)
-    want = torch.cat([K.fq_mont_mul_plain(a[i:i + 65536], b[i:i + 65536])
-                      for i in range(0, a.shape[0], 65536)])
-    field_equal = torch.equal(got, want)
-    emit({"phase": "field", "n": FIELD_N, "edge_pairs": ne * ne, "equal": field_equal,
-          "ms": cuda_ms(lambda: K.fq_mont_mul(a, b), 10)})
-    if not field_equal:
-        raise SystemExit("fq_mont_mul disagrees with the plain mont_mul")
-    del a, b, got, want
+    # 2. field self-test and sweep ------------------------------------------
+    field_cases = field_phase(dev)
 
     latency = product_latency(dev)
     emit({"phase": "product_latency", "device": smi, **latency})
@@ -927,6 +1017,7 @@ def main() -> int:
               "bucket": list(args_of["stage_prepare"][0].shape[:2]), "kernels": device})
         for name, d in device.items():
             (table[name] if path == "gossip" else table[name][path])["device_ms"] = d["kernel_ms"]
+    emit_field_device_ms(field_cases)
 
     emit({"kernels": [table[k] for k in K.KERNELS]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -208,7 +208,10 @@ def fq_mont_mul_plain(a, b=None):
 
 def fq_mont_mul(a, b=None):
     """Batched Montgomery product of two (..., NL) limb tensors; with b None,
-    the product by R^2 (the Montgomery conversion of a)."""
+    the product by R^2 (the Montgomery conversion of a). The kernel reads
+    16-byte vectors, so it refuses (and this raises on) a tensor whose data
+    does not start on a 16-byte boundary: a view that starts inside an
+    element."""
     if _on_cpu(a):
         return fq_mont_mul_plain(a, b)
     a = _limbs(a, tuple(a.shape), "a")

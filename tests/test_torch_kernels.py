@@ -11,6 +11,7 @@ equality (integer outputs, fully reduced field elements).
 """
 
 import re
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -19,6 +20,19 @@ import pytest
 from lighthouse_tpu_torch.crypto.bls381.constants import P
 
 REPO = Path(__file__).resolve().parents[1]
+FQ_MONT_MUL_CU = REPO / "lighthouse_tpu_torch" / "crypto" / "torchbls" / "csrc" / "fq_mont_mul.cu"
+
+
+def cu_constants(path):
+    """The `constexpr int NAME = expr;` lines of a CUDA source, evaluated in
+    order (an expression may name an earlier constant)."""
+    consts = {}
+    for name, expr in re.findall(r"constexpr int (\w+) = ([^;]+);", path.read_text()):
+        consts[name] = eval(expr, {"__builtins__": {}}, dict(consts))
+    return consts
+
+
+FQ_TILE = cu_constants(FQ_MONT_MUL_CU)["TILE"]
 
 
 # torch and the port's modules load when this file's first test runs, not
@@ -184,6 +198,94 @@ def test_fq_mont_mul_edge_operands_on_the_card(cuda):
     e = torch.as_tensor(np.stack([TL.pack(v) for v in edges]).astype(np.int64))
     a, b = e.repeat_interleave(len(edges), dim=0), e.repeat(len(edges), 1)
     assert_same(K.fq_mont_mul(a.to(cuda), b.to(cuda)), TL.mont_mul(a, b))
+
+
+# 300007 elements are more tiles than a card-sized grid holds (132 SMs x at
+# most 16 blocks of 128 threads, 270336 elements), so blocks take a second tile
+FQ_SIZES = [0, 1, 31, 33, 130, FQ_TILE - 1, FQ_TILE, FQ_TILE + 1, 5 * FQ_TILE + 7, 300007]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["a*b", "r2"])
+@pytest.mark.parametrize("n", FQ_SIZES)
+def test_fq_mont_mul_tiles_and_tails_on_the_card(n, form, cuda):
+    """fq_mont_mul in both forms (a * b, and by R^2) at sizes around its
+    tile: none, one element, a warp either side, AggregateVerify's 130, a
+    tile either side, several tiles and a partial one, more tiles than the
+    grid has blocks. One launch each, equal to the plain version."""
+    args = (rand_limbs(70, (n,)), rand_limbs(71, (n,)))[:2 if form == "a*b" else 1]
+    dev_args = to_dev(args, cuda)
+    before = K.fq_mont_mul.launches
+    got = K.fq_mont_mul(*dev_args)
+    torch.cuda.synchronize()
+    assert K.fq_mont_mul.launches == before + 1
+    assert got.shape == (n, TL.NL)
+    assert_same(got, K.fq_mont_mul_plain(*dev_args))
+
+
+@pytest.mark.cuda
+def test_fq_mont_mul_on_strided_and_offset_views(cuda):
+    """Every other row of a tensor (not contiguous: the wrapper copies it)
+    and a slice that starts three elements in (contiguous, a storage offset
+    of 3 x 192 bytes, 16-byte aligned), in both forms and as either
+    operand: equal to the plain version."""
+    n = 2 * FQ_TILE + 5
+    every_other = rand_limbs(72, (2 * n,)).to(cuda)[::2]
+    offset = rand_limbs(73, (n + 3,)).to(cuda)[3:]
+    assert not every_other.is_contiguous() and offset.storage_offset() == 3 * TL.NL
+    for args in ((every_other, offset), (offset, every_other), (every_other,), (offset,)):
+        assert_same(K.fq_mont_mul(*args), K.fq_mont_mul_plain(*args))
+
+
+@pytest.mark.cuda
+def test_fq_mont_mul_refuses_a_misaligned_pointer(cuda):
+    """The kernel moves 16-byte vectors, so the C entry point refuses a
+    pointer off a 16-byte boundary, in any argument and in both forms, with
+    cudaErrorMisalignedAddress (716) and the output untouched; the wrapper
+    raises on a view that starts 8 bytes into an element, launching
+    nothing."""
+    n = FQ_TILE + 3
+    flat = rand_limbs(74, (n + 1,)).to(cuda).reshape(-1)
+    out = torch.full((n + 1, TL.NL), -1, dtype=torch.int64, device=cuda)
+    a, o = flat.data_ptr(), out.data_ptr()
+    lib = K.library().lib
+    stream = torch.cuda.current_stream().cuda_stream
+    for args in ((a + 8, a, o), (a, a + 8, o), (a, a, o + 8), (a + 8, None, o), (a, None, o + 8)):
+        assert lib.lh_fq_mont_mul(*args, n, stream) == 716
+    torch.cuda.synchronize()
+    assert bool((out == -1).all())
+    view = flat[1:1 + n * TL.NL].view(n, TL.NL)
+    before = K.fq_mont_mul.launches
+    for args in ((view, view), (view,)):
+        with pytest.raises(RuntimeError, match="fq_mont_mul"):
+            K.fq_mont_mul(*args)
+    assert K.fq_mont_mul.launches == before
+
+
+def test_fq_mont_mul_tile_layout():
+    """csrc/fq_mont_mul.cu's tile as its header describes it, restated from
+    its constants: a 16-byte vector is one 32-bit word (two int64 limbs);
+    thread t's vectors k TILE + t cover the tile once, a warp's 32 at a
+    time consecutive (512 bytes); the fill gives every (element, word) its
+    own cell of the word-major rows with at most two-way bank conflicts, and
+    a warp reading one word of its 32 elements hits 32 banks."""
+    c = cu_constants(FQ_MONT_MUL_CU)
+    tile, vecs, stride = c["TILE"], c["VECS"], c["STRIDE"]
+    assert vecs * 16 == TL.NL * 8 and tile % 32 == 0 and stride >= tile
+    cell = {}
+    for k in range(vecs):
+        for warp in range(tile // 32):
+            v = [k * tile + 32 * warp + lane for lane in range(32)]
+            assert v == list(range(v[0], v[0] + 32))
+            for x in v:
+                e, w = divmod(x, vecs)
+                cell[x] = w * stride + e
+            assert max(Counter(cell[x] % 32 for x in v).values()) <= 2
+    assert sorted(cell) == list(range(tile * vecs))
+    assert len(set(cell.values())) == tile * vecs
+    for w in range(vecs):
+        for warp in range(tile // 32):
+            assert len({(w * stride + 32 * warp + i) % 32 for i in range(32)}) == 32
 
 
 @pytest.mark.cuda
