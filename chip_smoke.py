@@ -46,12 +46,26 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
      distinct-message AggregateVerify, its pair assembly on fq_mont_mul and
      stage_pairs; a flipped message byte must fail);
   5. the 15 EF BLS vectors through the port's API;
-  6. per-stage times of the gossip batch, hash-to-G2 of one message
-     against the pure-Python RFC 9380 map, and each kernel's device time
-     from torch.profiler at the three buckets (prepare's three launches
-     apart), beside phase 3's CUDA-event times, which take in the host's
-     time where a wrapper's Python outlasts its kernel; then fq_mont_mul's
-     device time at each size of the field phase.
+  6. per-stage times of the gossip batch and hash-to-G2 of one message
+     against the pure-Python RFC 9380 map; then the KZG path
+     (bench_fixtures.npz's 4096-point dev setup and 6 blobs, Deneb's blob
+     cap at mainnet width), after every earlier path's phase:
+     blob_to_kzg_commitment and compute_blob_kzg_proof of each blob equal
+     to the fixture's, verify_blob_kzg_proof_batch true, false with a
+     flipped blob byte and with two proofs swapped, verify_blob_kzg_proof
+     true (msm_precompute must launch once on it: the comb tables are
+     cached per point list), the median of five batch verifies and the
+     host's parts of one; the three MSM kernels against their plain
+     versions at the path's full width (the 4096 points, the 65536 comb
+     lanes with blob 0's scalars, the batch verify's C' and W' buckets at
+     w = 4 and w = 0), on 256 points, and on the comb's edge scalars (0,
+     1, R, R - 1);
+  7. each kernel's device time from torch.profiler at the three buckets
+     (prepare's three launches apart), beside phase 3's CUDA-event times,
+     which take in the host's time where a wrapper's Python outlasts its
+     kernel; the MSM kernels' at the KZG path's full width; fq_mont_mul's
+     at each size of the field phase; last, the card's busy share of one
+     KZG batch verify.
 The last two lines are the kernel table and the device line. To time
 another checkout's kernels with this script, copy it into that checkout's
 root and run it there.
@@ -81,6 +95,11 @@ MAIN_PATH = ("stage_prepare", "hash_to_g2", "stage_pairs", "miller_loop_batch",
              "miller_loop_product", "final_exp_easy_part", "final_exp_hard_part")
 AGGREGATE_PATH = ("fq_mont_mul", "hash_to_g2", "stage_pairs", "miller_loop_batch",
                   "miller_loop_product", "final_exp_easy_part", "final_exp_hard_part")
+KZG_PATH = ("msm_precompute", "msm_fixed", "msm_varying", "miller_loop_batch",
+            "miller_loop_product", "final_exp_easy_part", "final_exp_hard_part")
+KZG_N, KZG_BLOBS = 4096, 6         # FIELD_ELEMENTS_PER_BLOB (mainnet), MAX_BLOBS_PER_BLOCK (Deneb)
+KZG_VERIFY_REPEATS = 5            # batch verifies; the median is reported
+MSM_SUBSET = 256                  # points of the kernels' subset check
 INV_ITERS = 15                    # inversions per chain in product_latency (odd: x -> x^-1)
 INV_N = 1 << 16                   # random elements of the inversion check
 
@@ -313,6 +332,122 @@ def fq_products_easy_part() -> int:
     return 4 * 18 + (3 * 2 + 9 * 3) + (4 + 1) + 2 * 54 + 6 * 3
 
 
+# The MSM kernels' work on this run's data: a doubling 7 Fq products, a
+# general addition 16, an addition with an identity operand none; the
+# affine conversion one inversion (its product by R^3 beside the GCD,
+# int_ops_inverse), Z^-2, Z^-3, x, y and the two products out of Montgomery
+# form, 6 more. The bounds of msm_fixed and msm_varying count the least of
+# the MSM methods in least_msm_work, not the kernels' own method, whose
+# count (kernel_fq_products) stands beside it in the schedule line.
+MSM_AFFINE_PRODUCTS = 1 + 6
+
+
+def fq_products_msm_precompute(inf_mask) -> int:
+    """Per live point its Montgomery conversion (2) and the 15 x 16
+    doublings from row 0 to row 15, each row a point of the output."""
+    live = int((inf_mask == 0).sum())
+    return live * (2 + 15 * 16 * 7)
+
+
+def window_digits(scalars, bits: int, c: int):
+    """(n, ceil(bits / c)) c-bit digits of the scalars, least significant
+    window first, as int64."""
+    import numpy as np
+
+    windows = -(-bits // c)
+    if bits <= 62:
+        ks = np.asarray(scalars, dtype=np.int64)[:, None]
+        return (ks >> (c * np.arange(windows))) & ((1 << c) - 1)
+    return np.array([[(k >> (c * w)) & ((1 << c) - 1) for w in range(windows)] for k in scalars],
+                    dtype=np.int64).reshape(len(scalars), windows)
+
+
+def least_msm_work(scalars, bits: int) -> tuple[int, dict]:
+    """The Fq products of sum_i k_i P_i over points in general position with
+    these nonzero scalars (< 2^bits), by the cheaper of two methods at the
+    best window c of 1..16 bits, counted on this run's digits:
+      bucket (Pippenger): per window an addition per nonzero digit into
+        its bucket, the first into each bucket free; the buckets' running
+        sums, top - 1 more; then the windows joined from the top, c
+        doublings and an addition each;
+      interleaved (Straus): one chain of c doublings per window for all
+        points, an addition per nonzero digit (the first free), and per
+        point a table of 2^c - 1 multiples (2P a doubling, the rest
+        additions; none at c = 1).
+    Returns the products and the method and window that give them."""
+    import numpy as np
+
+    ks = [k for k in scalars if k]
+    if not ks:
+        return 0, {"method": "none", "window": 0}
+    best = None
+    for c in range(1, 17):
+        d = window_digits(ks, bits, c)
+        nnz = (d != 0).sum(axis=0)
+        top_window = int(np.nonzero(nnz)[0].max())
+        distinct = np.array([len(np.unique(col[col != 0])) for col in d.T])
+        top = d.max(axis=0)
+        live = nnz > 0
+        bucket_adds = int((nnz - distinct)[live].sum() + (distinct - 1)[live].sum()
+                          + (top - 1)[live].sum()) + int(live.sum()) - 1
+        bucket = 16 * bucket_adds + 7 * c * top_window
+        table = 0 if c == 1 else len(ks) * (7 + 16 * ((1 << c) - 3))
+        straus = 16 * (int(nnz.sum()) - 1) + 7 * c * top_window + table
+        for method, products in (("bucket", bucket), ("interleaved", straus)):
+            if best is None or products < best[0]:
+                best = (products, {"method": method, "window": c})
+    return best
+
+
+def chain_products(scalars, window: int) -> int:
+    """Fq products of double-and-add chains by `scalars` at `window` bits a
+    digit (1: bits), each from its top nonzero digit: window doublings per
+    later digit, an addition per later nonzero digit."""
+    total = 0
+    for k in scalars:
+        digits = []
+        while k:
+            digits.append(k & ((1 << window) - 1))
+            k >>= window
+        if digits:
+            total += (len(digits) - 1) * window * 7 + sum(1 for d in digits[:-1] if d) * 16
+    return total
+
+
+def fq_products_msm_fixed(tz, bits) -> tuple[int, int, dict]:
+    """The comb MSM over its live lanes (the table point finite, the chunk
+    nonzero): the least work of their 16-bit chunks (least_msm_work) and
+    the affine conversion; beside it the kernel's own count, a chunk's
+    double-and-add per lane and the sum of the lanes. Returns (least, own,
+    the least's method)."""
+    import torch
+
+    weights = 1 << torch.arange(bits.shape[1] - 1, -1, -1, device=bits.device)
+    chunks = (bits.long() * weights).sum(dim=1)
+    live = (tz != 0).any(dim=1) & (chunks != 0)
+    values = chunks[live].tolist()
+    least, method = least_msm_work(values, bits.shape[1])
+    own = chain_products(values, 1) + 16 * max(len(values) - 1, 0)
+    return least + MSM_AFFINE_PRODUCTS, own + MSM_AFFINE_PRODUCTS, method
+
+
+def fq_products_msm_varying(mask, scalars, window: int) -> tuple[int, int, dict]:
+    """The varying-base MSM over its live lanes (masked in, scalar
+    nonzero): per lane its Montgomery conversion (2), the least work of
+    the 256-bit scalars (least_msm_work) and the affine conversion; beside
+    it the kernel's own count, per lane a table of 2^w points (2P a
+    doubling, the other entries additions; none in the bit form) and its
+    chain by the scalar, then the sum of the lanes. Returns (least, own,
+    the least's method)."""
+    live = [k for on, k in zip(mask.tolist(), scalars) if on and k]
+    least, method = least_msm_work(live, 256)
+    table = (7 + 16 * ((1 << window) - 3)) if window else 0
+    own = (len(live) * table + chain_products(live, window or 1)
+           + 16 * max(len(live) - 1, 0))
+    fixed = 2 * len(live) + MSM_AFFINE_PRODUCTS
+    return least + fixed, own + fixed, method
+
+
 def field_floors(n: int, operands: int) -> dict:
     """The floors of n Montgomery products with `operands` inputs (1: by
     R^2) and one output, ms: the interchange's bytes and the elements' 48
@@ -498,6 +633,9 @@ KERNEL_FUNCTIONS = {
     "final_exp_hard_part": ("hard_part_kernel",),
     "hash_to_g2": ("h2c_kernel",),
     "final_exp_easy_part": ("easy_part_kernel",),
+    "msm_precompute": ("msm_precompute_kernel",),
+    "msm_fixed": ("msm_fixed_kernel", "msm_finish_kernel"),
+    "msm_varying": ("msm_varying_kernel", "msm_finish_kernel"),
 }
 
 
@@ -522,13 +660,36 @@ def profile_ms(name, args, reps: int = 3) -> dict:
         torch.cuda.synchronize()
     ours, other = {}, 0.0
     for ev in prof.key_averages():
-        key = ev.key.split("(")[0]
+        # "msm_fixed_kernel(...)", or for a template "void msm_varying_kernel<4>(...)"
+        key = ev.key.split("(")[0].split("<")[0].removeprefix("void ")
         dev_us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
         if key in KERNEL_FUNCTIONS[name]:
             ours[key] = dev_us / 1e3 / reps
         elif getattr(ev, "device_type", None) == DeviceType.CUDA:
             other += dev_us / 1e3 / reps
     return {"kernel_ms": sum(ours.values()), "split": ours, "wrapper_torch_ms": other}
+
+
+def device_share(fn) -> dict:
+    """One call of fn under torch.profiler: its wall ms (synchronised), the
+    device ms of every kernel and copy it ran on the card, and the share of
+    the wall the card was busy."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    on_card = [ev for ev in prof.key_averages()
+               if getattr(ev, "device_type", None) == DeviceType.CUDA]
+    busy = sum((getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0))
+               for ev in on_card) / 1e3
+    return {"wall_ms": wall_ms, "device_busy_ms": busy, "device_busy_share": busy / wall_ms,
+            "device_launches": sum(ev.count for ev in on_card)}
 
 
 # ------------------------------------------------------------ field phase
@@ -618,6 +779,234 @@ def emit_field_device_ms(cases) -> None:
         rows.append({"form": form, "n": n, "device_ms": d["kernel_ms"], "split": d["split"],
                      **floors, "share_of_interchange_floor": floors["interchange_ms"] / d["kernel_ms"]})
     emit({"phase": "field_device_ms", "cases": rows})
+
+
+# ------------------------------------------------------------ MSM kernels
+
+
+def msm_checks(dev, setup, blobs, cbs, pbs, backend) -> tuple[dict, dict]:
+    """The three MSM kernels against their plain versions (torch.equal) at
+    the KZG path's full width (msm_precompute on the setup's 4096 points,
+    msm_fixed on their 65536 comb lanes with blob 0's scalars, msm_varying
+    on the batch verify's C' and W' at w = 4 and at w = 0), on the first
+    MSM_SUBSET points, on the comb's edge scalars (0, 1, R, R - 1 on six
+    points, one of them the identity), and on [P, -P] and [P, P] under equal
+    scalars (comb, and varying at w = 4 and 0); the sums at full width
+    against the fixture's commitment, C' and W' and the edge cases also
+    against the pure-Python curve. Each kernel's row: CUDA-event ms, the plain
+    version's ms and the bound at full width. Returns the rows and the
+    full-width arguments (for the profiler)."""
+    import random
+
+    import numpy as np
+    import torch
+
+    from lighthouse_tpu_torch.crypto import kzg
+    from lighthouse_tpu_torch.crypto.bls381 import curve as pc
+    from lighthouse_tpu_torch.crypto.bls381 import serde
+    from lighthouse_tpu_torch.crypto.bls381.constants import R
+    from lighthouse_tpu_torch.crypto.torchbls import kernels as K
+    from lighthouse_tpu_torch.crypto.torchbls import msm
+    from lighthouse_tpu_torch.crypto.torchbls.backend import pack_ints_vec
+
+    def host_msm(points, scalars):
+        acc = None
+        for pt, k in zip(points, scalars):
+            if pt is not None and k % R:
+                acc = pc.g1_add(acc, pc.g1_mul(pt, k % R))
+        return acc
+
+    def point_args(points):
+        xs = pack_ints_vec([0 if pt is None else pt[0] for pt in points]).astype(np.int64)
+        ys = pack_ints_vec([0 if pt is None else pt[1] for pt in points]).astype(np.int64)
+        return (torch.as_tensor(xs, device=dev), torch.as_tensor(ys, device=dev),
+                torch.as_tensor(np.array([pt is None for pt in points]), device=dev))
+
+    checks = {name: [] for name in ("msm_precompute", "msm_fixed", "msm_varying")}
+    host_equal, plain_ms = [], {}
+
+    def check(name, args, want=None, timed=False):
+        kout = K.KERNELS[name][0](*args)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        pout = K.KERNELS[name][1](*args)
+        torch.cuda.synchronize()
+        if timed:
+            plain_ms[name] = (time.perf_counter() - t1) * 1e3
+        checks[name].append(compare(kout, pout))
+        if want is not None:
+            host_equal.append(msm.affine_result(*kout) == want)
+        return kout
+
+    # full width: the setup's points and their comb tables, blob 0's scalars
+    g1 = setup.g1_lagrange
+    pre_args = point_args(g1)
+    full = msm.FixedBaseMSM(g1, dev)
+    poly0 = kzg.blob_to_polynomial(blobs[0], setup)
+    fixed_args = (*full._tables, full.bits_tensor(poly0))
+    check("msm_precompute", pre_args, timed=True)
+    check("msm_fixed", fixed_args, serde.g1_decompress(cbs[0]), timed=True)
+    # the batch verify's two varying-base MSMs, C' and W', as g1_msm gets them
+    captured = []
+    real_g1_msm = backend.g1_msm
+
+    def spy(points, scalars):
+        captured.append((list(points), list(scalars)))
+        return real_g1_msm(points, scalars)
+
+    backend.g1_msm = spy
+    try:
+        if kzg.verify_blob_kzg_proof_batch(blobs, cbs, pbs, setup) is not True:
+            raise SystemExit("the KZG batch verify failed while its MSMs were captured")
+    finally:
+        del backend.g1_msm
+    var_args = {}
+    for which, (points, scalars) in zip(("c_prime", "w_prime"), captured):
+        want = host_msm(points, scalars)
+        for w in (4, 0):
+            var_args[which, w] = backend.msm_inputs(points, scalars, w) + (w,)
+            check("msm_varying", var_args[which, w], want, timed=(which, w) == ("c_prime", 4))
+    # the first MSM_SUBSET points: their tables and blob 0's first scalars
+    sub = msm.FixedBaseMSM(g1[:MSM_SUBSET], dev)
+    check("msm_precompute", point_args(g1[:MSM_SUBSET]))
+    check("msm_fixed", (*sub._tables, sub.bits_tensor(poly0[:MSM_SUBSET])))
+    # the comb's edge scalars on six points (tests/test_jaxbls_msm.py's)
+    rng = random.Random(0x115)
+    six = [pc.g1_mul(pc.G1_GEN, rng.randrange(1, R)) for _ in range(5)]
+    six.insert(2, None)
+    edge = msm.FixedBaseMSM(six, dev)
+    for k, want in ((0, None), (1, six[0]), (R, None), (R - 1, pc.g1_neg(six[0]))):
+        check("msm_fixed", (*edge._tables, edge.bits_tensor([k] + [0] * 5)), want)
+    # opposite and equal points under equal scalars: the complete add's
+    # P == -Q (the identity) and P == Q (the doubling) branches in the sums
+    k = rng.randrange(1, R)
+    for pair in ([six[0], pc.g1_neg(six[0])], [six[0], six[0]]):
+        want = host_msm(pair, [k, k])
+        comb = msm.FixedBaseMSM(pair, dev)
+        check("msm_fixed", (*comb._tables, comb.bits_tensor([k, k])), want)
+        for w in (4, 0):
+            check("msm_varying", backend.msm_inputs(pair, [k, k], w) + (w,), want)
+
+    # rows at full width
+    full_args = {"msm_precompute": pre_args, "msm_fixed": fixed_args,
+                 "msm_varying": var_args["c_prime", 4]}
+    c_scalars = [k % R for k in captured[0][1]]
+    c_scalars += [0] * (full_args["msm_varying"][0].shape[0] - len(c_scalars))
+    products = {"msm_precompute": fq_products_msm_precompute(pre_args[2])}
+    own, least_by = {}, {}
+    products["msm_fixed"], own["msm_fixed"], least_by["msm_fixed"] = fq_products_msm_fixed(
+        fixed_args[2], fixed_args[3])
+    products["msm_varying"], own["msm_varying"], least_by["msm_varying"] = (
+        fq_products_msm_varying(full_args["msm_varying"][2], c_scalars, 4))
+    int_ops = {"msm_fixed": int_ops_inverse(), "msm_varying": int_ops_inverse()}
+    rows, schedule = {}, {}
+    for name, args in full_args.items():
+        wrapper = K.KERNELS[name][0]
+        kout = wrapper(*args)
+        ms = cuda_ms(lambda: wrapper(*args), 3)
+        if name == "msm_varying":       # digits: a 256-bit scalar a lane
+            moved = bytes_needed(args[:3]) + 32 * args[0].shape[0]
+        else:
+            moved = bytes_needed(args)
+        bms, by = bound_ms(products[name], moved + bytes_needed(kout), int_ops.get(name, 0))
+        results = checks[name]
+        rows[name] = {"max_abs_err": max(e for _eq, e in results),
+                      "equal": all(eq for eq, _e in results), "checks": len(results),
+                      "ms": ms, "plain_ms": plain_ms[name], "bound_ms": bms, "bound_by": by}
+        schedule[name] = {"fq_products": products[name], **(
+            {"inverse_int_ops": int_ops[name]} if name in int_ops else {}), **(
+            {"least_by": least_by[name], "kernel_fq_products": own[name]}
+            if name in own else {})}
+        emit({"phase": "kernel", "path": "kzg", "name": name, **rows[name]})
+    emit({"phase": "schedule", "path": "kzg", "kernels": schedule,
+          "c_prime_terms": len(captured[0][0]), "w_prime_terms": len(captured[1][0]),
+          "varying_buckets": [int(var_args["c_prime", 4][0].shape[0]),
+                              int(var_args["w_prime", 4][0].shape[0])]})
+    if not all(r["equal"] for r in rows.values()) or not all(host_equal):
+        raise SystemExit(f"an MSM kernel disagrees with its plain version or the curve: "
+                         f"{ {k: v['equal'] for k, v in rows.items()} }, host {host_equal}")
+    return rows, {**full_args, "w_prime": var_args["w_prime", 4]}
+
+
+def kzg_phase(drive, launches, dev):
+    """The KZG path: the fixture's 4096-point setup and 6 blobs through the
+    public KZG API on the active (torch) backend, driven with the launch
+    counts reset just before it (`drive`); then the tampered and swapped
+    batches, the median of KZG_VERIFY_REPEATS batch verifies, the host
+    parts of one, and msm_checks. Returns msm_checks' rows and arguments
+    and a function that runs the batch verify once."""
+    from lighthouse_tpu_torch.crypto import bls, kzg
+    from lighthouse_tpu_torch.crypto.bls381 import serde
+    from lighthouse_tpu_torch.utils import fixtures
+
+    t0 = time.perf_counter()
+    kz = fixtures.load_kzg(FIXTURES)
+    setup = kzg.TrustedSetup(kz["g1_lagrange"], kz["g2_monomial"],
+                             kzg._fr_roots_of_unity(len(kz["g1_lagrange"])))
+    blobs, cbs, pbs = kz["blobs"], kz["commitments"], kz["proofs"]
+    if setup.n != KZG_N or len(blobs) != KZG_BLOBS:
+        raise SystemExit(f"KZG fixture is not {KZG_BLOBS} blobs at {KZG_N}")
+    kzg_load_s = time.perf_counter() - t0
+    kzg_s = {}
+
+    def kzg_run():
+        t = time.perf_counter()
+        commits = [kzg.blob_to_kzg_commitment(b, setup) for b in blobs]
+        kzg_s["commitments"] = time.perf_counter() - t
+        t = time.perf_counter()
+        proofs = [kzg.compute_blob_kzg_proof(b, cb, setup) for b, cb in zip(blobs, cbs)]
+        kzg_s["proofs"] = time.perf_counter() - t
+        t = time.perf_counter()
+        batch = kzg.verify_blob_kzg_proof_batch(blobs, cbs, pbs, setup)
+        kzg_s["batch_verify"] = time.perf_counter() - t
+        t = time.perf_counter()
+        single = kzg.verify_blob_kzg_proof(blobs[0], cbs[0], pbs[0], setup)
+        kzg_s["single_verify"] = time.perf_counter() - t
+        return commits, proofs, batch, single
+
+    (commits, proofs, batch_ok, single_ok), kzg_path_s = drive("kzg", KZG_PATH, kzg_run)
+    commits_equal = [c == serde.g1_decompress(cb) for c, cb in zip(commits, cbs)]
+    proofs_equal = [p_ == serde.g1_decompress(pb) for p_, pb in zip(proofs, pbs)]
+    flipped = bytearray(blobs[0])
+    flipped[31] ^= 1                    # the low byte of field element 0
+    tampered_ok = kzg.verify_blob_kzg_proof_batch([bytes(flipped)] + blobs[1:], cbs, pbs, setup)
+    swapped_ok = kzg.verify_blob_kzg_proof_batch(blobs, cbs, [pbs[1], pbs[0]] + pbs[2:], setup)
+    verify_s = []
+    for _ in range(KZG_VERIFY_REPEATS):
+        t0 = time.perf_counter()
+        ok_again = kzg.verify_blob_kzg_proof_batch(blobs, cbs, pbs, setup)
+        verify_s.append(time.perf_counter() - t0)
+        if ok_again is not True:
+            raise SystemExit("a repeated KZG batch verify failed")
+    kzg_median = sorted(verify_s)[len(verify_s) // 2]
+    # the batch verify's host work by part: the 12 decompressions (each
+    # with its subgroup check) and the 6 challenges with their evaluations
+    t0 = time.perf_counter()
+    for b in cbs + pbs:
+        serde.g1_decompress(b)
+    decompress_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for b, cb in zip(blobs, cbs):
+        kzg._evaluate_polynomial_in_evaluation_form(
+            kzg.blob_to_polynomial(b, setup), kzg.compute_challenge(b, cb, setup), setup)
+    evaluate_s = time.perf_counter() - t0
+    emit({"phase": "kzg", "setup_points": setup.n, "blobs": len(blobs),
+          "fixture_load_seconds": kzg_load_s, "commitments_equal": commits_equal,
+          "proofs_equal": proofs_equal, "batch_verified": batch_ok, "single_verified": single_ok,
+          "tampered_verified": tampered_ok, "swapped_verified": swapped_ok,
+          "seconds": kzg_s, "path_seconds": kzg_path_s, "verify_seconds": verify_s,
+          "verify_median_seconds": kzg_median, "blobs_per_s": len(blobs) / kzg_median,
+          "host_parts_seconds": {"decompress_12": decompress_s, "challenge_evaluate_6": evaluate_s},
+          "launches": launches["kzg"]})
+    if not (all(commits_equal) and all(proofs_equal) and batch_ok is True and single_ok is True
+            and tampered_ok is False and swapped_ok is False):
+        raise SystemExit("the KZG path gave a wrong commitment, proof or verdict")
+    if launches["kzg"]["msm_precompute"] != 1:
+        raise SystemExit(f"msm_precompute launched {launches['kzg']['msm_precompute']} times "
+                         "on the KZG path, want once")
+    rows, args = msm_checks(dev, setup, blobs, cbs, pbs, bls.get_backend())
+    return rows, args, lambda: kzg.verify_blob_kzg_proof_batch(blobs, cbs, pbs, setup)
+
 
 
 # ------------------------------------------------------------ phases
@@ -956,21 +1345,6 @@ def main() -> int:
     if len(ef) != 15 or not all(ef.values()):
         raise SystemExit("EF BLS vectors failed")
 
-    # the kernel line: the gossip path's numbers, then each path's launches
-    # and the sync and urgent buckets' checks
-    table = {}
-    for name, (_w, _p, source, replaces) in K.KERNELS.items():
-        g = checks["gossip"][name]
-        table[name] = {
-            "name": name, "route": "cuda",
-            "source": f"lighthouse_tpu_torch/crypto/torchbls/csrc/{source}",
-            "replaces": replaces, "launches": launches["gossip"][name],
-            "max_abs_err": g["max_abs_err"], "ms": g["ms"], "plain_ms": g["plain_ms"],
-            "bound_ms": g["bound_ms"], "bound_by": g["bound_by"], "library_ms": None,
-            "equal": g["equal"], "launches_by_path": {path: launches[path][name] for path in launches},
-            "sync": checks["sync"][name], "urgent": checks["urgent"][name],
-        }
-
     # 6. per-stage times of one more valid batch, synchronised after each stage
     stage_ms = {}
     torch.cuda.synchronize()
@@ -1006,6 +1380,28 @@ def main() -> int:
     if got != want or bool(inf):
         raise SystemExit("hash-to-G2 disagrees with the pure-Python reference")
 
+    # the KZG path, after every earlier path's phase so none runs behind
+    # its allocations
+    msm_rows, msm_args, kzg_verify = kzg_phase(drive, launches, dev)
+
+    # the kernel line: the gossip path's numbers (the MSM kernels': the KZG
+    # path's), then each path's launches and the sync and urgent buckets'
+    # checks
+    table = {}
+    for name, (_w, _p, source, replaces) in K.KERNELS.items():
+        g = msm_rows[name] if name in msm_rows else checks["gossip"][name]
+        main_path = "kzg" if name in msm_rows else "gossip"
+        table[name] = {
+            "name": name, "route": "cuda",
+            "source": f"lighthouse_tpu_torch/crypto/torchbls/csrc/{source}",
+            "replaces": replaces, "launches": launches[main_path][name],
+            "max_abs_err": g["max_abs_err"], "ms": g["ms"], "plain_ms": g["plain_ms"],
+            "bound_ms": g["bound_ms"], "bound_by": g["bound_by"], "library_ms": None,
+            "equal": g["equal"], "launches_by_path": {path: launches[path][name] for path in launches},
+        }
+        if name not in msm_rows:
+            table[name].update(sync=checks["sync"][name], urgent=checks["urgent"][name])
+
     # each kernel's device ms from the profiler (prepare's three launches
     # apart) on the stage data of each bucket, beside the CUDA-event ms of
     # back-to-back wrapper calls, which take in the host's time where a
@@ -1017,7 +1413,15 @@ def main() -> int:
               "bucket": list(args_of["stage_prepare"][0].shape[:2]), "kernels": device})
         for name, d in device.items():
             (table[name] if path == "gossip" else table[name][path])["device_ms"] = d["kernel_ms"]
+    device = {name: profile_ms(name, args) for name, args in msm_args.items()
+              if name != "w_prime"}
+    emit({"phase": "device_ms", "path": "kzg", "kernels": device,
+          "msm_varying_w_prime": profile_ms("msm_varying", msm_args["w_prime"])})
+    for name, d in device.items():
+        table[name]["device_ms"] = d["kernel_ms"]
     emit_field_device_ms(field_cases)
+    # last: the one long profiler session, so no short one follows it
+    emit({"phase": "kzg_device_share", **device_share(kzg_verify)})
 
     emit({"kernels": [table[k] for k in K.KERNELS]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,8 +7,10 @@ blst.rs:35-117): with random nonzero 64-bit coefficients z_i (z_0 = 1),
     prod_i e(z_i * aggpk_i, H(m_i)) * e(-g1, sum_i z_i * sig_i) == 1
 
 Backends: "torch" (crypto/torchbls, loaded at first use: it resolves the
-CUDA device) and "fake", which validates nothing and proves the batch
-plumbing, like lighthouse/crypto/bls/src/impls/fake_crypto.rs.
+CUDA device), "python", the pure-Python ground truth (KZG's host fallback,
+and the hybrid router's host lane once it is ported), and "fake", which
+validates nothing and proves the batch plumbing, like
+lighthouse/crypto/bls/src/impls/fake_crypto.rs.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from typing import Callable, Sequence
 
 from ..bls381 import curve as cv
 from ..bls381 import hash_to_curve as h2c
+from ..bls381 import pairing as pr
 from ..bls381.constants import DST_POP, R
 from .keys import PublicKey, SecretKey
 from .signature import Signature
@@ -33,6 +36,41 @@ def _default_rands(n: int) -> list[int]:
 
 def hash_to_g2_point(message: bytes):
     return h2c.hash_to_g2(message, DST_POP)
+
+
+class PythonBackend:
+    """Pure-Python ground-truth backend."""
+
+    name = "python"
+
+    def verify_signature_sets(self, sets: Sequence[SignatureSet], rands: Sequence[int]) -> bool:
+        pairs = []
+        sig_acc = None
+        for s, z in zip(sets, rands):
+            agg_pk = None
+            for pk in s.signing_keys:
+                agg_pk = cv.g1_add(agg_pk, pk.point)
+            if agg_pk is None:
+                return False
+            msg_pt = hash_to_g2_point(s.message)
+            pairs.append((cv.g1_mul(agg_pk, z), msg_pt))
+            sig_acc = cv.g2_add(sig_acc, cv.g2_mul(s.signature.point, z) if s.signature.point else None)
+        pairs.append((cv.g1_neg(cv.G1_GEN), sig_acc))
+        return pr.multi_pairing_is_one(pairs)
+
+    def verify_signature_sets_async(self, sets, rands):
+        return _ReadyHandle(self.verify_signature_sets(sets, rands))
+
+    def verify_single(self, pk: PublicKey, message: bytes, sig: Signature) -> bool:
+        if sig.is_infinity():
+            return False
+        msg_pt = hash_to_g2_point(message)
+        return pr.multi_pairing_is_one([(pk.point, msg_pt), (cv.g1_neg(cv.G1_GEN), sig.point)])
+
+    def aggregate_verify(self, pks: Sequence[PublicKey], messages: Sequence[bytes], sig: Signature) -> bool:
+        pairs = [(pk.point, hash_to_g2_point(m)) for pk, m in zip(pks, messages)]
+        pairs.append((cv.g1_neg(cv.G1_GEN), sig.point))
+        return pr.multi_pairing_is_one(pairs)
 
 
 class FakeBackend:
@@ -57,7 +95,7 @@ class FakeBackend:
         return Signature(cv.G2_GEN)
 
 
-_BACKENDS: dict[str, object] = {"fake": FakeBackend()}
+_BACKENDS: dict[str, object] = {"python": PythonBackend(), "fake": FakeBackend()}
 _active_backend = None
 
 

@@ -27,8 +27,11 @@ synchronisation in between; `VerifyHandle.result()` waits on that event.
 Both lanes, batch and urgent, share the device's one stream.
 `verify_signature_sets` is `verify_signature_sets_async(...).result()`.
 `aggregate_verify` (distinct messages) runs h2c, the pair assembly
-`aggregate_pairs` and the pairing stage. On CPU tensors (device="cpu")
-every stage runs its plain PyTorch version, synchronously.
+`aggregate_pairs` and the pairing stage. KZG (crypto/kzg.py) reaches the
+card through `g1_msm` (kernels.msm_varying), `g1_msm_fixed` (comb tables
+of kernels.msm_precompute, cached per point set, and kernels.msm_fixed)
+and `pairing_product_is_one` (the pairing stage). On CPU tensors
+(device="cpu") every stage runs its plain PyTorch version, synchronously.
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ from . import curve_ops as co
 from . import h2c_ops as h2
 from . import kernels
 from . import limbs as lb
+from . import msm
 from . import pairing_ops as po
 from . import pipeline
 from . import tower as tw
@@ -145,6 +149,10 @@ class TorchBackend:
         # the same PublicKey objects every slot)
         self._pk_cache: dict = {}
         self._pk_cache_order: list = []
+        # comb tables of fixed point sets (the KZG setup's Lagrange points),
+        # keyed by the identity of the point list, whose reference they keep
+        self._fixed_msm_cache: dict = {}
+        self._fixed_msm_order: list = []
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         """Host array -> int64 tensor on the device; to the card through a
@@ -264,6 +272,46 @@ class TorchBackend:
         h_jac = stage_h2c(self._tensor(us))
         pairs = aggregate_pairs(*(self._tensor(a) for a in (pk_x, pk_y, mask, sig_xy)), h_jac)
         return bool(stage_pairing(*pairs))
+
+    # -- accelerated primitives exposed to KZG ----------------------------
+
+    def msm_inputs(self, points, scalars, window: int):
+        """kernels.msm_varying's inputs on the device for host affine int
+        pairs (None = the identity) and ints mod r: px, py, mask and the
+        digits at `window`, padded to a power-of-two bucket of at least
+        MIN_SETS masked lanes."""
+        px, py, live = msm.pack_points(list(points), MIN_SETS)
+        real_digits = msm.msm_digits(list(scalars), window)
+        digits = np.zeros((len(live), real_digits.shape[1]), np.uint32)
+        digits[: len(real_digits)] = real_digits
+        return tuple(self._tensor(a) for a in (px, py, live.astype(np.uint32), digits))
+
+    def g1_msm(self, points, scalars):
+        """sum_i scalars[i] * points[i] over G1 for host affine int pairs
+        (None = the identity) and ints mod r -> a host affine int pair or
+        None: kernels.msm_varying at msm.msm_window's width."""
+        if len(points) == 0:
+            return None
+        w = msm.msm_window()
+        return msm.affine_result(*kernels.msm_varying(*self.msm_inputs(points, scalars, w),
+                                                      window=w))
+
+    def g1_msm_fixed(self, points, scalars):
+        """The same sum over a STABLE point set (the KZG setup's Lagrange
+        basis): its comb tables are built once (kernels.msm_precompute) and
+        cached by the identity of the list, which the cache keeps alive
+        (four sets at most); every call is one kernels.msm_fixed."""
+        key = id(points)
+        hit = self._fixed_msm_cache.get(key)
+        if hit is None or hit[1] is not points:
+            hit = (msm.FixedBaseMSM(points, self.device), points)
+            self._fixed_msm_cache[key] = hit
+            if key in self._fixed_msm_order:     # an id reused after GC
+                self._fixed_msm_order.remove(key)
+            self._fixed_msm_order.append(key)
+            if len(self._fixed_msm_order) > 4:
+                self._fixed_msm_cache.pop(self._fixed_msm_order.pop(0), None)
+        return hit[0].msm(scalars)
 
     def pairing_inputs(self, live):
         """Host affine pairs, none of them the identity -> the pairing

@@ -174,6 +174,59 @@ def tree_sum(p_jac, ops):
     return tuple(c[0] for c in p_jac)
 
 
+def scalar_mul_windowed(p_jac, digits, ops, window: int = 4):
+    """p * k for per-lane scalars given as base-2^w digits (..., ndigits),
+    MSB first: a table of [0..2^w - 1] * P per lane, then per digit w
+    doublings and one add of the digit's entry. The table is built in log
+    rounds, j*P = (j//2)*P + (j - j//2)*P, one stacked jac_add per round,
+    as the JAX package builds it, so every Jacobian entry has its bits; a
+    direct index takes the place of its one-hot gather (the same entry)."""
+    nt = 1 << window
+    table = [identity_like(ops, p_jac[0]), p_jac]
+    while len(table) < nt:
+        m = len(table)
+        idx = list(range(m, min(2 * (m - 1), nt - 1) + 1))
+        A = tuple(torch.stack([table[j // 2][ci] for j in idx]) for ci in range(3))
+        B = tuple(torch.stack([table[j - j // 2][ci] for j in idx]) for ci in range(3))
+        S = jac_add(A, B, ops)
+        for k, _j in enumerate(idx):
+            table.append(tuple(S[ci][k] for ci in range(3)))
+    table_arr = tuple(torch.stack([t[i] for t in table]) for i in range(3))
+    elem = table_arr[0].shape[1 + digits.dim() - 1:]
+
+    def gather(digit):
+        index = digit.long().reshape((1,) + digit.shape + (1,) * len(elem))
+        index = index.expand((1,) + digit.shape + elem)
+        return tuple(torch.gather(c, 0, index)[0] for c in table_arr)
+
+    acc = identity_like(ops, p_jac[0])
+    for d in range(digits.shape[-1]):
+        for _ in range(window):
+            acc = jac_double(acc, ops)
+        acc = jac_add(acc, gather(digits[..., d]), ops)
+    return acc
+
+
+def scalars_to_digits(zs, nbits: int, window: int = 4):
+    """Host: list of ints -> (n, ceil(nbits / window)) numpy uint32 digit
+    array, MSB first."""
+    import numpy as np
+
+    nd = (nbits + window - 1) // window
+    out = np.zeros((len(zs), nd), np.uint32)
+    for i, z in enumerate(zs):
+        for j in range(nd):
+            out[i, nd - 1 - j] = (z >> (j * window)) & ((1 << window) - 1)
+    return out
+
+
+def masked_tree_sum(p_jac, mask, ops):
+    """Sum of the points where mask != 0 along the first axis; masked-out
+    entries become the identity before the tree_sum."""
+    inf = identity_like(ops, p_jac[0])
+    return tree_sum(pt_select(ops, mask != 0, p_jac, inf), ops)
+
+
 def scalars_to_bits(zs, nbits: int):
     """Host: list of ints -> (n, nbits) numpy bit array, MSB first."""
     import numpy as np

@@ -34,3 +34,11 @@ def to_numpy(x):
     if t.dtype == torch.bool:
         return t.numpy()
     return t.numpy().astype(np.uint32)
+
+
+def fixed_base_tables(tables, device="cpu"):
+    """The JAX package's FixedBaseMSM comb tables (its `_tables`: three (16
+    n, 24) uint32 arrays of 16-bit limbs, Montgomery Jacobian, row j holding
+    2^(16 j) P_i) -> the port's (tx, ty, tz), int64 tensors on `device`, the
+    layout kernels.msm_precompute returns."""
+    return tuple(to_torch(np.asarray(t), device) for t in tables)

@@ -19,7 +19,11 @@ Kernel, source, and the TPU kernel (or XLA function) it replaces:
   hash_to_g2           csrc/h2c.cu          pallas_ops.py:641 _h2c_kernel
   final_exp_easy_part  csrc/easy_part.cu    pairing_ops.py:296 final_exponentiation
                                             (its easy part, kept in XLA there)
-(pallas_ops.py and pairing_ops.py are under lighthouse_tpu/crypto/jaxbls/.)
+  msm_precompute       csrc/msm.cu          msm.py:134 _precompute_kernel (XLA)
+  msm_fixed            csrc/msm.cu          msm.py:157 _msm_kernel (XLA)
+  msm_varying          csrc/msm.cu          msm.py:99 varying_base_msm_kernel (XLA)
+(pallas_ops.py, pairing_ops.py and msm.py are under
+lighthouse_tpu/crypto/jaxbls/.)
 csrc/latency.cu (lh_product_latency, lh_inverse) times chains of Fq
 products, team levels and Fq inversions (the Fermat chain against fq.cuh's
 binary GCD) for chip_smoke.py's product_latency phase; no path launches it,
@@ -41,6 +45,7 @@ from ..bls381.constants import P, X_ABS
 from . import curve_ops as co
 from . import h2c_ops as h2
 from . import limbs as lb
+from . import msm
 from . import pairing_ops as po
 from . import rounds
 from . import team
@@ -53,7 +58,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 INV_STEPS = 30
 INV_BATCHES = -(-(2 * P.bit_length() - 1) // INV_STEPS)
 SOURCES = ("fq_mont_mul.cu", "prepare.cu", "pairs.cu", "miller.cu", "hard_part.cu", "h2c.cu",
-           "easy_part.cu")
+           "easy_part.cu", "msm.cu")
 
 
 # ------------------------------------------------------------ build + load
@@ -150,6 +155,10 @@ def library() -> torchcfg.KernelLibrary:
         "lh_final_exp_hard_part": ([vp, vp, vp], i32),
         "lh_hash_to_g2": ([vp, i32, vp, vp, vp, vp], i32),
         "lh_final_exp_easy_part": ([vp, vp, vp], i32),
+        "lh_msm_scratch_words": ([i64], i64),
+        "lh_msm_precompute": ([vp, vp, vp, i32, vp, vp, vp, vp], i32),
+        "lh_msm_fixed": ([vp] * 4 + [i32] + [vp] * 5, i32),
+        "lh_msm_varying": ([vp] * 4 + [i32, i32, i32] + [vp] * 5, i32),
     }
     for fname, (argtypes, restype) in sigs.items():
         fn = getattr(kl.lib, fname)
@@ -448,9 +457,95 @@ def final_exp_easy_part(m):
     return out
 
 
+# ------------------------------------------------------------ G1 MSM
+
+
+def _digits(t: torch.Tensor, shape: tuple, what: str) -> torch.Tensor:
+    """A CUDA integer tensor of exactly `shape` as contiguous int32."""
+    if t.device.type != "cuda" or t.dtype.is_floating_point or tuple(t.shape) != shape:
+        raise ValueError(f"{what}: want a CUDA integer tensor of shape {shape}, "
+                         f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    return t.to(torch.int32).contiguous()
+
+
+def _affine_out(dev):
+    """The sums' outputs: standard-form x, y (NL,) and the flag."""
+    return (torch.empty((NL,), dtype=torch.int64, device=dev),
+            torch.empty((NL,), dtype=torch.int64, device=dev),
+            torch.empty((1,), dtype=torch.int32, device=dev))
+
+
+def _scratch(lanes: int, dev) -> torch.Tensor:
+    return torch.empty((_lib().lh_msm_scratch_words(lanes),), dtype=torch.int32, device=dev)
+
+
+def msm_precompute(px, py, inf_mask):
+    """Comb tables of n standard-form affine points px, py (n, NL) with
+    their infinity mask (n,) -> (tx, ty, tz), each (16 n, NL), Montgomery
+    Jacobian, through csrc/msm.cu (plain version on CPU tensors)."""
+    if _on_cpu(px):
+        return msm.precompute_plain(px, py, inf_mask)
+    n = px.shape[0]
+    px = _limbs(px, (n, NL), "px")
+    py = _limbs(py, (n, NL), "py")
+    inf_mask = _flags(inf_mask, (n,), "inf_mask")
+    tx, ty, tz = (torch.empty((msm.N_CHUNKS * n, NL), dtype=torch.int64, device=px.device)
+                  for _ in range(3))
+    _check(_lib().lh_msm_precompute(_ptr(px), _ptr(py), _ptr(inf_mask), n, _ptr(tx), _ptr(ty),
+                                    _ptr(tz), _stream()), "msm_precompute")
+    msm_precompute.launches += 1
+    return tx, ty, tz
+
+
+def msm_fixed(tx, ty, tz, bits):
+    """The comb MSM over L lanes of tables (L, NL) with their 16-bit chunks
+    as bits (L, 16), MSB first -> the sum's standard-form affine x, y (NL,)
+    and its infinity flag, through csrc/msm.cu (plain version on CPU
+    tensors)."""
+    if _on_cpu(tx):
+        return msm.fixed_msm_plain(tx, ty, tz, bits)
+    lanes = tx.shape[0]
+    tx, ty, tz = (_limbs(c, (lanes, NL), "tables") for c in (tx, ty, tz))
+    bits = _flags(bits, (lanes, msm.CHUNK_BITS), "bits")
+    x, y, inf = _affine_out(tx.device)
+    _check(_lib().lh_msm_fixed(_ptr(tx), _ptr(ty), _ptr(tz), _ptr(bits), lanes,
+                               _ptr(_scratch(lanes, tx.device)), _ptr(x), _ptr(y), _ptr(inf),
+                               _stream()), "msm_fixed")
+    msm_fixed.launches += 1
+    return x, y, inf[0] != 0
+
+
+def msm_varying(px, py, mask, digits, window: int = 4):
+    """The varying-base MSM of n standard-form affine points px, py (n, NL)
+    with their mask (n,) by MSB-first digits (n, nd) from msm.msm_digits at
+    `window` (0: the bit form) -> the sum's standard-form affine x, y (NL,)
+    and its infinity flag, through csrc/msm.cu (plain version on CPU
+    tensors)."""
+    if _on_cpu(px):
+        return msm.varying_base_msm_plain(px, py, mask, digits, window)
+    if window != 0 and window not in msm.ALLOWED_WINDOWS:
+        raise ValueError(f"msm_varying: window {window} is not 0 or one of {msm.ALLOWED_WINDOWS}")
+    n, nd = digits.shape
+    if nd != -(-256 // (window or 4)):
+        raise ValueError(f"msm_varying: {nd} digits do not cover 256 bits at window {window}")
+    px = _limbs(px, (n, NL), "px")
+    py = _limbs(py, (n, NL), "py")
+    mask = _flags(mask, (n,), "mask")
+    # a digit outside the window's table is refused on the card, without a
+    # sync here: the sum comes back as msm.REFUSED, which affine_result
+    # raises on
+    digits = _digits(digits, (n, nd), "digits")
+    x, y, inf = _affine_out(px.device)
+    _check(_lib().lh_msm_varying(_ptr(px), _ptr(py), _ptr(mask), _ptr(digits), n, nd, window,
+                                 _ptr(_scratch(n, px.device)), _ptr(x), _ptr(y), _ptr(inf),
+                                 _stream()), "msm_varying")
+    msm_varying.launches += 1
+    return x, y, inf[0] != 0
+
+
 # Every wrapper with its plain version, its source and the TPU kernel (or,
-# for the easy part, the XLA function) it replaces. chip_smoke.py walks
-# this table.
+# for the easy part, the per-pair Miller loop and the MSM, the XLA
+# function) it replaces. chip_smoke.py walks this table.
 KERNELS = {
     "fq_mont_mul": (fq_mont_mul, fq_mont_mul_plain, "fq_mont_mul.cu",
                     "scripts/probe_pallas.py:76"),
@@ -468,6 +563,12 @@ KERNELS = {
                    "lighthouse_tpu/crypto/jaxbls/pallas_ops.py:641"),
     "final_exp_easy_part": (final_exp_easy_part, po.final_exp_easy_part, "easy_part.cu",
                             "lighthouse_tpu/crypto/jaxbls/pairing_ops.py:296"),
+    "msm_precompute": (msm_precompute, msm.precompute_plain, "msm.cu",
+                       "lighthouse_tpu/crypto/jaxbls/msm.py:134"),
+    "msm_fixed": (msm_fixed, msm.fixed_msm_plain, "msm.cu",
+                  "lighthouse_tpu/crypto/jaxbls/msm.py:157"),
+    "msm_varying": (msm_varying, msm.varying_base_msm_plain, "msm.cu",
+                    "lighthouse_tpu/crypto/jaxbls/msm.py:99"),
 }
 
 for _wrapper, *_rest in KERNELS.values():

@@ -1,9 +1,11 @@
-"""SignatureSets from the repo's committed fixture archives.
+"""SignatureSets and the KZG setup from the repo's committed fixture archives.
 
 bench_fixtures.npz (and its small twin bench_fixtures_smoke.npz) hold real
 BLS signature sets as big-endian 48-byte field elements: att_* are
 aggregate attestations (n_att sets of up to 128 keys), sync_* one Altair
-sync-committee aggregate of 512 keys. Decoding only: no device work.
+sync-committee aggregate of 512 keys; kzg_* a dev KZG setup (uncompressed
+affine Lagrange points, 4096 in bench_fixtures.npz) with blobs and their
+compressed commitments and proofs. Decoding only: no device work.
 """
 
 from __future__ import annotations
@@ -43,3 +45,17 @@ def load_groups(path, n_att: int | None = None) -> dict:
            for i in range(count)]
     sync = [signature_set(z["sync_keys"], z["sync_sigs"][0], z["sync_msgs"][0])]
     return {"att": att, "sync": sync, "meta": meta}
+
+
+def load_kzg(path) -> dict:
+    """The archive's KZG fixture: {"g1_lagrange": host affine G1 points,
+    "g2_monomial": [H, tau H] as host affine G2 points, "blobs",
+    "commitments", "proofs": bytes}."""
+    z = np.load(path)
+    return {
+        "g1_lagrange": [_g1(p) for p in z["kzg_setup_g1"]],
+        "g2_monomial": [_g2(p) for p in z["kzg_g2_monomial"]],
+        "blobs": [bytes(b) for b in z["kzg_blobs"]],
+        "commitments": [bytes(c) for c in z["kzg_commitments"]],
+        "proofs": [bytes(p) for p in z["kzg_proofs"]],
+    }

@@ -205,6 +205,14 @@ def test_import_and_cpu_verify_load_no_jax():
         "assert be.verify_single(pk, msg, sig)\n"
         "assert be.aggregate_verify([pk], [msg], sig)\n"
         "assert be.verify_signature_sets_async([bls.SignatureSet(sig, [pk], msg)], [1]).result()\n"
+        "from lighthouse_tpu_torch.crypto import kzg\n"
+        "from lighthouse_tpu_torch.crypto.bls381 import pairing\n"
+        "from lighthouse_tpu_torch.crypto.torchbls import msm\n"
+        "from lighthouse_tpu_torch.utils import fixtures\n"
+        "from lighthouse_tpu_torch.crypto.bls import api\n"
+        "assert api._BACKENDS['python'].verify_single(pk, msg, sig)\n"
+        "assert be.g1_msm([cv.G1_GEN, None], [3, 5]) == cv.g1_mul(cv.G1_GEN, 3)\n"
+        "assert msm.FixedBaseMSM([cv.G1_GEN], 'cpu').msm([2]) == cv.g1_mul(cv.G1_GEN, 2)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'lighthouse_tpu.'))"
         " or m == 'lighthouse_tpu']\n"
         "assert not bad, bad\n"

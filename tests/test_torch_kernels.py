@@ -410,18 +410,23 @@ def test_consts_header_carries_the_field_constants():
 
 
 KERNEL_NAMES = ["final_exp_easy_part", "final_exp_hard_part", "fq_mont_mul", "hash_to_g2",
-                "miller_loop_batch", "miller_loop_product", "stage_pairs", "stage_prepare"]
+                "miller_loop_batch", "miller_loop_product", "msm_fixed", "msm_precompute",
+                "msm_varying", "stage_pairs", "stage_prepare"]
 
 # kernels that replace an XLA function of the JAX package, not a Pallas kernel
 XLA_FUNCTIONS = {"final_exp_easy_part": "final_exponentiation",
-                 "miller_loop_batch": "miller_loop_batch"}
+                 "miller_loop_batch": "miller_loop_batch",
+                 "msm_precompute": "_precompute_kernel",
+                 "msm_fixed": "_msm_kernel",
+                 "msm_varying": "varying_base_msm_kernel"}
 
 
 @pytest.mark.parametrize("name", KERNEL_NAMES)
 def test_kernel_table_points_at_sources_and_pallas_kernels(name):
     """Each kernel replaces a Pallas kernel (its def or its pallas_call),
-    apart from the easy part and the per-pair Miller loop, which replace the
-    XLA functions that computed them."""
+    apart from the easy part, the per-pair Miller loop and the MSM's three
+    programs, which replace the XLA functions that computed them: their
+    `replaces` line holds that function's def."""
     assert sorted(K.KERNELS) == KERNEL_NAMES
     _wrapper, _plain, source, replaces = K.KERNELS[name]
     assert (K.CSRC / source).exists()
@@ -431,3 +436,141 @@ def test_kernel_table_points_at_sources_and_pallas_kernels(name):
     pattern = (rf"^def {XLA_FUNCTIONS[name]}\(" if name in XLA_FUNCTIONS
                else r"def _\w+_kernel\(|pl\.pallas_call\(")
     assert re.search(pattern, text[int(line) - 1]), replaces
+
+
+# ------------------------------------------------------------ G1 MSM (csrc/msm.cu)
+
+
+def msm_points(n, seed):
+    """n seeded G1 points (every fourth the identity) and n scalars mod r."""
+    import random
+
+    from lighthouse_tpu_torch.crypto.bls381 import curve as cv
+    from lighthouse_tpu_torch.crypto.bls381.constants import R
+
+    rng = random.Random(seed)
+    pts = [None if i % 4 == 3 else cv.g1_mul(cv.G1_GEN, rng.randrange(1, R)) for i in range(n)]
+    return pts, [rng.randrange(R) for _ in range(n)]
+
+
+def host_msm(points, scalars):
+    from lighthouse_tpu_torch.crypto.bls381 import curve as cv
+    from lighthouse_tpu_torch.crypto.bls381.constants import R
+
+    acc = None
+    for p, s in zip(points, scalars):
+        if p is not None and s % R:
+            acc = cv.g1_add(acc, cv.g1_mul(p, s % R))
+    return acc
+
+
+def msm_point_args(pts, dev):
+    from lighthouse_tpu_torch.crypto.torchbls.backend import pack_ints_vec
+
+    return tuple(torch.as_tensor(a, device=dev) for a in (
+        pack_ints_vec([0 if p is None else p[0] for p in pts]).astype(np.int64),
+        pack_ints_vec([0 if p is None else p[1] for p in pts]).astype(np.int64),
+        np.array([p is None for p in pts])))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 6, 129])
+def test_msm_precompute_kernel_matches_plain(cuda, n):
+    """Every Jacobian limb of the comb tables, identity lanes included."""
+    from lighthouse_tpu_torch.crypto.torchbls import msm as TM
+
+    pts, _ = msm_points(n, 0x100 + n)
+    args = msm_point_args(pts, cuda)
+    before = K.msm_precompute.launches
+    got = K.msm_precompute(*args)
+    assert K.msm_precompute.launches == before + 1
+    assert_same(got, TM.precompute_plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["random", "zero", "one_hot", "r", "r_minus_1"])
+def test_msm_fixed_kernel_matches_plain_and_host(cuda, case):
+    """The comb MSM over six points (one the identity) at random scalars and
+    at the edge scalars: all zero, a one-hot 1, R (reduced to 0 on the host,
+    so the same sums as all zero) and R - 1 (-P)."""
+    import random
+
+    from lighthouse_tpu_torch.crypto.bls381.constants import R
+    from lighthouse_tpu_torch.crypto.torchbls import msm as TM
+
+    pts, _ = msm_points(6, 0x115)
+    fixed = TM.FixedBaseMSM(pts, cuda)
+    sel = [random.Random(0x117).randrange(R) for _ in pts] if case == "random" else [0] * 6
+    if case != "random":
+        sel[0] = {"zero": 0, "one_hot": 1, "r": R, "r_minus_1": R - 1}[case]
+    bits = fixed.bits_tensor(sel)
+    got = K.msm_fixed(*fixed._tables, bits)
+    assert_same(got, TM.fixed_msm_plain(*fixed._tables, bits))
+    assert TM.affine_result(*got) == host_msm(pts, sel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window, n", [(0, 4), (0, 32), (4, 4), (4, 32), (4, 256), (2, 8),
+                                       (5, 8), (6, 8)])
+def test_msm_varying_kernel_matches_plain_and_host(cuda, window, n):
+    """The varying-base MSM at each width (0: the bit form), over one block
+    and over two (n = 256)."""
+    from lighthouse_tpu_torch.crypto.torchbls import msm as TM
+
+    pts, scalars = msm_points(n, 0x200 + n)
+    px, py, inf = msm_point_args(pts, cuda)
+    digits = torch.as_tensor(TM.msm_digits(scalars, window).astype(np.int64), device=cuda)
+    got = K.msm_varying(px, py, ~inf, digits, window)
+    assert_same(got, TM.varying_base_msm_plain(px, py, ~inf, digits, window))
+    assert TM.affine_result(*got) == host_msm(pts, scalars)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair", ["opposite", "equal"])
+@pytest.mark.parametrize("form", ["fixed", "varying_w4", "varying_w0"])
+def test_msm_sums_of_opposite_and_equal_points(cuda, form, pair):
+    """[P, -P] with equal scalars sums to the identity (the complete add's
+    P == -Q branch, in the lanes' sum); [P, P] to 2 k P (its doubling
+    branch). The comb MSM and the varying-base MSM at w = 4 and in the bit
+    form, each against its plain version and the host curve."""
+    from lighthouse_tpu_torch.crypto.bls381 import curve as cv
+    from lighthouse_tpu_torch.crypto.torchbls import backend as TB
+    from lighthouse_tpu_torch.crypto.torchbls import msm as TM
+
+    (pt,), (k,) = msm_points(1, 0x400)
+    pts = [pt, cv.g1_neg(pt) if pair == "opposite" else pt]
+    want = None if pair == "opposite" else cv.g1_mul(pt, 2 * k)
+    if form == "fixed":
+        fixed = TM.FixedBaseMSM(pts, cuda)
+        args = (*fixed._tables, fixed.bits_tensor([k, k]))
+        got, plain = K.msm_fixed(*args), TM.fixed_msm_plain(*args)
+    else:
+        w = 4 if form == "varying_w4" else 0
+        args = TB.TorchBackend(device=cuda).msm_inputs(pts, [k, k], w)
+        got, plain = K.msm_varying(*args, w), TM.varying_base_msm_plain(*args, w)
+    assert_same(got, plain)
+    assert TM.affine_result(*got) == want == host_msm(pts, [k, k])
+
+
+@pytest.mark.cuda
+def test_msm_varying_refuses_what_its_kernel_does_not_take(cuda):
+    """A window with no form and digits that do not cover 256 bits are
+    refused at the call; a digit past its window's table, on the card, as
+    the REFUSED sum that affine_result raises on."""
+    from lighthouse_tpu_torch.crypto.torchbls import msm as TM
+
+    pts, scalars = msm_points(4, 0x300)
+    px, py, inf = msm_point_args(pts, cuda)
+    digits = torch.as_tensor(TM.msm_digits(scalars, 4).astype(np.int64), device=cuda)
+    with pytest.raises(ValueError, match="window 3"):
+        K.msm_varying(px, py, ~inf, digits, 3)
+    with pytest.raises(ValueError, match="digits"):
+        K.msm_varying(px, py, ~inf, digits, 5)
+    for w, past in ((4, 16), (0, 16), (4, -1)):
+        wide = torch.as_tensor(TM.msm_digits(scalars, w).astype(np.int64), device=cuda)
+        wide[1, 3] = past
+        before = K.msm_varying.launches
+        out = K.msm_varying(px, py, ~inf, wide, w)
+        assert K.msm_varying.launches == before + 1
+        with pytest.raises(ValueError, match="outside"):
+            TM.affine_result(*out)
