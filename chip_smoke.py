@@ -57,9 +57,11 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
      cached per point list), the median of five batch verifies and the
      host's parts of one; the three MSM kernels against their plain
      versions at the path's full width (the 4096 points, the 65536 comb
-     lanes with blob 0's scalars, the batch verify's C' and W' buckets at
-     w = 4 and w = 0), on 256 points, and on the comb's edge scalars (0,
-     1, R, R - 1);
+     lanes with blob 0's scalars, with every chunk equal and with every
+     chunk 0, the batch verify's C' and W' buckets at w = 0, 2, 4, 5 and
+     6), on 256 points (a quarter of them the identity, too), on the
+     comb's edge scalars (0, 1, R, R - 1) and on [P, -P] and [P, P]; a
+     digit outside its width refused;
   7. each kernel's device time from torch.profiler at the three buckets
      (prepare's three launches apart), beside phase 3's CUDA-event times,
      which take in the host's time where a wrapper's Python outlasts its
@@ -399,27 +401,27 @@ def least_msm_work(scalars, bits: int) -> tuple[int, dict]:
     return best
 
 
-def chain_products(scalars, window: int) -> int:
-    """Fq products of double-and-add chains by `scalars` at `window` bits a
-    digit (1: bits), each from its top nonzero digit: window doublings per
-    later digit, an addition per later nonzero digit."""
-    total = 0
-    for k in scalars:
-        digits = []
-        while k:
-            digits.append(k & ((1 << window) - 1))
-            k >>= window
-        if digits:
-            total += (len(digits) - 1) * window * 7 + sum(1 for d in digits[:-1] if d) * 16
+def join_products(live) -> int:
+    """msm_join_kernel's Fq products over its terms, each the identity or
+    not: per level, each pair's upper term doubled 2^(level - 1) times
+    (none for the identity) and added to the lower one."""
+    total, span = 0, 1
+    while len(live) > 1:
+        pairs = list(zip(live[0::2], live[1::2]))
+        total += sum(7 * span * hi + 16 * (lo and hi) for lo, hi in pairs)
+        live, span = [lo or hi for lo, hi in pairs], 2 * span
     return total
 
 
 def fq_products_msm_fixed(tz, bits) -> tuple[int, int, dict]:
     """The comb MSM over its live lanes (the table point finite, the chunk
     nonzero): the least work of their 16-bit chunks (least_msm_work) and
-    the affine conversion; beside it the kernel's own count, a chunk's
-    double-and-add per lane and the sum of the lanes. Returns (least, own,
-    the least's method)."""
+    the affine conversion; beside it the kernel's own count: per 8-bit
+    window an addition per lane into its bucket (the first free), per
+    window and bit the sum of the nonempty buckets with that bit, the
+    join of the 16 terms. Returns (least, own, the least's method)."""
+    from collections import Counter
+
     import torch
 
     weights = 1 << torch.arange(bits.shape[1] - 1, -1, -1, device=bits.device)
@@ -427,23 +429,36 @@ def fq_products_msm_fixed(tz, bits) -> tuple[int, int, dict]:
     live = (tz != 0).any(dim=1) & (chunks != 0)
     values = chunks[live].tolist()
     least, method = least_msm_work(values, bits.shape[1])
-    own = chain_products(values, 1) + 16 * max(len(values) - 1, 0)
+    own, terms = 0, []
+    for w in range(2):
+        buckets = Counter(d for d in ((c >> (8 * w)) & 0xFF for c in values) if d)
+        own += 16 * sum(n - 1 for n in buckets.values())
+        for b in range(8):
+            m = sum(1 for d in buckets if d >> b & 1)
+            own += 16 * max(m - 1, 0)
+            terms.append(m > 0)
+    own += join_products(terms)
     return least + MSM_AFFINE_PRODUCTS, own + MSM_AFFINE_PRODUCTS, method
 
 
-def fq_products_msm_varying(mask, scalars, window: int) -> tuple[int, int, dict]:
+def fq_products_msm_varying(mask, scalars) -> tuple[int, int, dict]:
     """The varying-base MSM over its live lanes (masked in, scalar
     nonzero): per lane its Montgomery conversion (2), the least work of
     the 256-bit scalars (least_msm_work) and the affine conversion; beside
-    it the kernel's own count, per lane a table of 2^w points (2P a
-    doubling, the other entries additions; none in the bit form) and its
-    chain by the scalar, then the sum of the lanes. Returns (least, own,
-    the least's method)."""
+    it the kernel's own count: per lane the product by beta, per bit of
+    the GLV halves the sum of the slots with that bit, the join of the 128
+    windows. Returns (least, own, the least's method)."""
+    from lighthouse_tpu_torch.crypto.torchbls.msm import GLV_LAMBDA
+
     live = [k for on, k in zip(mask.tolist(), scalars) if on and k]
     least, method = least_msm_work(live, 256)
-    table = (7 + 16 * ((1 << window) - 3)) if window else 0
-    own = (len(live) * table + chain_products(live, window or 1)
-           + 16 * max(len(live) - 1, 0))
+    halves = [h for k in live for h in divmod(k, GLV_LAMBDA)]
+    own, terms = len(live), []
+    for j in range(128):
+        m = sum(1 for h in halves if h >> j & 1)
+        own += 16 * max(m - 1, 0)
+        terms.append(m > 0)
+    own += join_products(terms)
     fixed = 2 * len(live) + MSM_AFFINE_PRODUCTS
     return least + fixed, own + fixed, method
 
@@ -634,8 +649,9 @@ KERNEL_FUNCTIONS = {
     "hash_to_g2": ("h2c_kernel",),
     "final_exp_easy_part": ("easy_part_kernel",),
     "msm_precompute": ("msm_precompute_kernel",),
-    "msm_fixed": ("msm_fixed_kernel", "msm_finish_kernel"),
-    "msm_varying": ("msm_varying_kernel", "msm_finish_kernel"),
+    "msm_fixed": ("msm_hist_kernel", "msm_scatter_kernel", "msm_level_kernel",
+                  "msm_join_kernel"),
+    "msm_varying": ("msm_recode_kernel", "msm_level_kernel", "msm_join_kernel"),
 }
 
 
@@ -660,7 +676,7 @@ def profile_ms(name, args, reps: int = 3) -> dict:
         torch.cuda.synchronize()
     ours, other = {}, 0.0
     for ev in prof.key_averages():
-        # "msm_fixed_kernel(...)", or for a template "void msm_varying_kernel<4>(...)"
+        # "msm_join_kernel(...)", or for a template "void name<...>(...)"
         key = ev.key.split("(")[0].split("<")[0].removeprefix("void ")
         dev_us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
         if key in KERNEL_FUNCTIONS[name]:
@@ -787,15 +803,19 @@ def emit_field_device_ms(cases) -> None:
 def msm_checks(dev, setup, blobs, cbs, pbs, backend) -> tuple[dict, dict]:
     """The three MSM kernels against their plain versions (torch.equal) at
     the KZG path's full width (msm_precompute on the setup's 4096 points,
-    msm_fixed on their 65536 comb lanes with blob 0's scalars, msm_varying
-    on the batch verify's C' and W' at w = 4 and at w = 0), on the first
-    MSM_SUBSET points, on the comb's edge scalars (0, 1, R, R - 1 on six
-    points, one of them the identity), and on [P, -P] and [P, P] under equal
-    scalars (comb, and varying at w = 4 and 0); the sums at full width
-    against the fixture's commitment, C' and W' and the edge cases also
-    against the pure-Python curve. Each kernel's row: CUDA-event ms, the plain
-    version's ms and the bound at full width. Returns the rows and the
-    full-width arguments (for the profiler)."""
+    msm_fixed on their 65536 comb lanes with blob 0's scalars, with every
+    lane's chunk equal, so that each window has one bucket, and with every
+    chunk 0; msm_varying on the batch verify's C' and W' at every width,
+    0, 2, 4, 5 and 6), on the first MSM_SUBSET points (and on them with
+    every fourth point the identity), on the comb's edge scalars (0, 1, R,
+    R - 1 on six points, one of them the identity), and on [P, -P] and
+    [P, P] under equal scalars (their lanes in one bucket; comb, and
+    varying at w = 4 and 0); the sums at full width against the fixture's
+    commitment, C' and W' and the edge cases also against the pure-Python
+    curve; a digit outside its width's range refused (msm.REFUSED). Each
+    kernel's row: CUDA-event ms, the plain version's ms and the bound at
+    full width. Returns the rows and the full-width arguments (for the
+    profiler)."""
     import random
 
     import numpy as np
@@ -806,6 +826,7 @@ def msm_checks(dev, setup, blobs, cbs, pbs, backend) -> tuple[dict, dict]:
     from lighthouse_tpu_torch.crypto.bls381 import serde
     from lighthouse_tpu_torch.crypto.bls381.constants import R
     from lighthouse_tpu_torch.crypto.torchbls import kernels as K
+    from lighthouse_tpu_torch.crypto.torchbls import limbs as lb
     from lighthouse_tpu_torch.crypto.torchbls import msm
     from lighthouse_tpu_torch.crypto.torchbls.backend import pack_ints_vec
 
@@ -823,9 +844,10 @@ def msm_checks(dev, setup, blobs, cbs, pbs, backend) -> tuple[dict, dict]:
                 torch.as_tensor(np.array([pt is None for pt in points]), device=dev))
 
     checks = {name: [] for name in ("msm_precompute", "msm_fixed", "msm_varying")}
-    host_equal, plain_ms = [], {}
+    failed, host_equal, plain_ms = [], [], {}
+    no_host = object()                   # a case with no host sum (None is the identity)
 
-    def check(name, args, want=None, timed=False):
+    def check(name, case, args, want=no_host, timed=False):
         kout = K.KERNELS[name][0](*args)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
@@ -834,8 +856,12 @@ def msm_checks(dev, setup, blobs, cbs, pbs, backend) -> tuple[dict, dict]:
         if timed:
             plain_ms[name] = (time.perf_counter() - t1) * 1e3
         checks[name].append(compare(kout, pout))
-        if want is not None:
+        if not checks[name][-1][0]:
+            failed.append(f"{name} {case}: plain")
+        if want is not no_host:
             host_equal.append(msm.affine_result(*kout) == want)
+            if not host_equal[-1]:
+                failed.append(f"{name} {case}: curve")
         return kout
 
     # full width: the setup's points and their comb tables, blob 0's scalars
@@ -844,8 +870,12 @@ def msm_checks(dev, setup, blobs, cbs, pbs, backend) -> tuple[dict, dict]:
     full = msm.FixedBaseMSM(g1, dev)
     poly0 = kzg.blob_to_polynomial(blobs[0], setup)
     fixed_args = (*full._tables, full.bits_tensor(poly0))
-    check("msm_precompute", pre_args, timed=True)
-    check("msm_fixed", fixed_args, serde.g1_decompress(cbs[0]), timed=True)
+    check("msm_precompute", "4096 points", pre_args, timed=True)
+    check("msm_fixed", "blob 0", fixed_args, serde.g1_decompress(cbs[0]), timed=True)
+    one_bucket = fixed_args[3].clone()
+    one_bucket[:] = torch.tensor([(0xA5C3 >> (15 - b)) & 1 for b in range(16)], device=dev)
+    check("msm_fixed", "every chunk 0xA5C3", (*full._tables, one_bucket))
+    check("msm_fixed", "every chunk 0", (*full._tables, torch.zeros_like(one_bucket)), None)
     # the batch verify's two varying-base MSMs, C' and W', as g1_msm gets them
     captured = []
     real_g1_msm = backend.g1_msm
@@ -863,29 +893,48 @@ def msm_checks(dev, setup, blobs, cbs, pbs, backend) -> tuple[dict, dict]:
     var_args = {}
     for which, (points, scalars) in zip(("c_prime", "w_prime"), captured):
         want = host_msm(points, scalars)
-        for w in (4, 0):
+        for w in (4, 0, 2, 5, 6):
             var_args[which, w] = backend.msm_inputs(points, scalars, w) + (w,)
-            check("msm_varying", var_args[which, w], want, timed=(which, w) == ("c_prime", 4))
-    # the first MSM_SUBSET points: their tables and blob 0's first scalars
-    sub = msm.FixedBaseMSM(g1[:MSM_SUBSET], dev)
-    check("msm_precompute", point_args(g1[:MSM_SUBSET]))
-    check("msm_fixed", (*sub._tables, sub.bits_tensor(poly0[:MSM_SUBSET])))
+            check("msm_varying", f"{which} w = {w}", var_args[which, w], want,
+                  timed=(which, w) == ("c_prime", 4))
+    # a digit outside its width's range (16 at w = 4 and in the bit form,
+    # -1), on a live lane: the REFUSED sum, which affine_result raises on
+    refusals = []
+    for w, past in ((4, 16), (0, 16), (6, -1)):
+        px, py, live, digits, _w = var_args["c_prime", w]
+        digits = digits.clone()
+        digits[1, 3] = past
+        x, y, inf = K.msm_varying(px, py, live, digits, w)
+        refusals.append(lb.unpack(x.cpu().numpy()) == msm.REFUSED and not bool(inf))
+    if not all(refusals):
+        failed.append(f"msm_varying refusals {refusals}")
+    # the first MSM_SUBSET points: their tables and blob 0's first scalars,
+    # then with every fourth point the identity
+    sub_points = g1[:MSM_SUBSET]
+    for case, points in (("256 points", sub_points),
+                         ("256 points, a quarter the identity",
+                          [None if i % 4 == 3 else pt for i, pt in enumerate(sub_points)])):
+        sub = msm.FixedBaseMSM(points, dev)
+        check("msm_precompute", case, point_args(points))
+        check("msm_fixed", case, (*sub._tables, sub.bits_tensor(poly0[:MSM_SUBSET])))
     # the comb's edge scalars on six points (tests/test_jaxbls_msm.py's)
     rng = random.Random(0x115)
     six = [pc.g1_mul(pc.G1_GEN, rng.randrange(1, R)) for _ in range(5)]
     six.insert(2, None)
     edge = msm.FixedBaseMSM(six, dev)
     for k, want in ((0, None), (1, six[0]), (R, None), (R - 1, pc.g1_neg(six[0]))):
-        check("msm_fixed", (*edge._tables, edge.bits_tensor([k] + [0] * 5)), want)
-    # opposite and equal points under equal scalars: the complete add's
-    # P == -Q (the identity) and P == Q (the doubling) branches in the sums
+        check("msm_fixed", f"edge {k}", (*edge._tables, edge.bits_tensor([k] + [0] * 5)), want)
+    # opposite and equal points under equal scalars, each pair's lanes in
+    # one bucket: the complete add's P == -Q (the identity) and P == Q
+    # (the doubling) branches in the sums
     k = rng.randrange(1, R)
-    for pair in ([six[0], pc.g1_neg(six[0])], [six[0], six[0]]):
+    for case, pair in (("[P, -P]", [six[0], pc.g1_neg(six[0])]), ("[P, P]", [six[0], six[0]])):
         want = host_msm(pair, [k, k])
         comb = msm.FixedBaseMSM(pair, dev)
-        check("msm_fixed", (*comb._tables, comb.bits_tensor([k, k])), want)
+        check("msm_fixed", case, (*comb._tables, comb.bits_tensor([k, k])), want)
         for w in (4, 0):
-            check("msm_varying", backend.msm_inputs(pair, [k, k], w) + (w,), want)
+            check("msm_varying", f"{case} w = {w}",
+                  backend.msm_inputs(pair, [k, k], w) + (w,), want)
 
     # rows at full width
     full_args = {"msm_precompute": pre_args, "msm_fixed": fixed_args,
@@ -897,7 +946,7 @@ def msm_checks(dev, setup, blobs, cbs, pbs, backend) -> tuple[dict, dict]:
     products["msm_fixed"], own["msm_fixed"], least_by["msm_fixed"] = fq_products_msm_fixed(
         fixed_args[2], fixed_args[3])
     products["msm_varying"], own["msm_varying"], least_by["msm_varying"] = (
-        fq_products_msm_varying(full_args["msm_varying"][2], c_scalars, 4))
+        fq_products_msm_varying(full_args["msm_varying"][2], c_scalars))
     int_ops = {"msm_fixed": int_ops_inverse(), "msm_varying": int_ops_inverse()}
     rows, schedule = {}, {}
     for name, args in full_args.items():
@@ -921,10 +970,10 @@ def msm_checks(dev, setup, blobs, cbs, pbs, backend) -> tuple[dict, dict]:
     emit({"phase": "schedule", "path": "kzg", "kernels": schedule,
           "c_prime_terms": len(captured[0][0]), "w_prime_terms": len(captured[1][0]),
           "varying_buckets": [int(var_args["c_prime", 4][0].shape[0]),
-                              int(var_args["w_prime", 4][0].shape[0])]})
-    if not all(r["equal"] for r in rows.values()) or not all(host_equal):
-        raise SystemExit(f"an MSM kernel disagrees with its plain version or the curve: "
-                         f"{ {k: v['equal'] for k, v in rows.items()} }, host {host_equal}")
+                              int(var_args["w_prime", 4][0].shape[0])],
+          "refusals": refusals, "host_checks": len(host_equal)})
+    if failed:
+        raise SystemExit(f"an MSM kernel disagrees with its plain version or the curve: {failed}")
     return rows, {**full_args, "w_prime": var_args["w_prime", 4]}
 
 

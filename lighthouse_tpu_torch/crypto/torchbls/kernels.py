@@ -41,7 +41,7 @@ import torch
 
 from ...utils import torchcfg
 from ..bls381 import curve as pc
-from ..bls381.constants import P, X_ABS
+from ..bls381.constants import P, R, X_ABS
 from . import curve_ops as co
 from . import h2c_ops as h2
 from . import limbs as lb
@@ -72,6 +72,12 @@ def _words32(limbs16) -> list[int]:
 
 def _c_array(name: str, words) -> str:
     return f"static __constant__ uint32_t {name}[12] = {{{', '.join(f'0x{w:08x}u' for w in words)}}};"
+
+
+def _c_words(name: str, value: int, n: int) -> str:
+    """An n-word little-endian __constant__ array of a nonnegative int."""
+    words = ", ".join(f"0x{(value >> 32 * i) & 0xFFFFFFFF:08x}u" for i in range(n))
+    return f"static __constant__ uint32_t {name}[{n}] = {{{words}}};"
 
 
 def _c_table(name: str, limbs16) -> str:
@@ -107,6 +113,10 @@ def consts_header() -> str:
         f"#define INV_STEPS {INV_STEPS}",
         f"#define INV_BATCHES {INV_BATCHES}",
         _c_array("FP_R3", _words32(lb.pack(pow(lb.R_MONT, 3, P)))),
+        # msm.cu's GLV split: r, lambda and beta (Montgomery form)
+        _c_words("FR_R", R, 8),
+        _c_words("GLV_LAMBDA", msm.GLV_LAMBDA, 4),
+        _c_array("FP_BETA", _words32(lb.pack(msm.GLV_BETA * lb.R_MONT % P))),
         # psi's coefficients for h2c.cu's cofactor clearing (curve_ops'
         # tables; the SWU map's constants are in team_programs.cuh)
         _c_table("PSI_CX", co._PSI_CX),
@@ -155,7 +165,8 @@ def library() -> torchcfg.KernelLibrary:
         "lh_final_exp_hard_part": ([vp, vp, vp], i32),
         "lh_hash_to_g2": ([vp, i32, vp, vp, vp, vp], i32),
         "lh_final_exp_easy_part": ([vp, vp, vp], i32),
-        "lh_msm_scratch_words": ([i64], i64),
+        "lh_msm_fixed_scratch_words": ([i64], i64),
+        "lh_msm_varying_scratch_words": ([i64], i64),
         "lh_msm_precompute": ([vp, vp, vp, i32, vp, vp, vp, vp], i32),
         "lh_msm_fixed": ([vp] * 4 + [i32] + [vp] * 5, i32),
         "lh_msm_varying": ([vp] * 4 + [i32, i32, i32] + [vp] * 5, i32),
@@ -475,10 +486,6 @@ def _affine_out(dev):
             torch.empty((1,), dtype=torch.int32, device=dev))
 
 
-def _scratch(lanes: int, dev) -> torch.Tensor:
-    return torch.empty((_lib().lh_msm_scratch_words(lanes),), dtype=torch.int32, device=dev)
-
-
 def msm_precompute(px, py, inf_mask):
     """Comb tables of n standard-form affine points px, py (n, NL) with
     their infinity mask (n,) -> (tx, ty, tz), each (16 n, NL), Montgomery
@@ -508,9 +515,11 @@ def msm_fixed(tx, ty, tz, bits):
     tx, ty, tz = (_limbs(c, (lanes, NL), "tables") for c in (tx, ty, tz))
     bits = _flags(bits, (lanes, msm.CHUNK_BITS), "bits")
     x, y, inf = _affine_out(tx.device)
-    _check(_lib().lh_msm_fixed(_ptr(tx), _ptr(ty), _ptr(tz), _ptr(bits), lanes,
-                               _ptr(_scratch(lanes, tx.device)), _ptr(x), _ptr(y), _ptr(inf),
-                               _stream()), "msm_fixed")
+    lib = _lib()
+    scratch = torch.empty((lib.lh_msm_fixed_scratch_words(lanes),), dtype=torch.int32,
+                          device=tx.device)
+    _check(lib.lh_msm_fixed(_ptr(tx), _ptr(ty), _ptr(tz), _ptr(bits), lanes, _ptr(scratch),
+                            _ptr(x), _ptr(y), _ptr(inf), _stream()), "msm_fixed")
     msm_fixed.launches += 1
     return x, y, inf[0] != 0
 
@@ -536,9 +545,12 @@ def msm_varying(px, py, mask, digits, window: int = 4):
     # raises on
     digits = _digits(digits, (n, nd), "digits")
     x, y, inf = _affine_out(px.device)
-    _check(_lib().lh_msm_varying(_ptr(px), _ptr(py), _ptr(mask), _ptr(digits), n, nd, window,
-                                 _ptr(_scratch(n, px.device)), _ptr(x), _ptr(y), _ptr(inf),
-                                 _stream()), "msm_varying")
+    lib = _lib()
+    scratch = torch.empty((lib.lh_msm_varying_scratch_words(n),), dtype=torch.int32,
+                          device=px.device)
+    _check(lib.lh_msm_varying(_ptr(px), _ptr(py), _ptr(mask), _ptr(digits), n, nd, window,
+                              _ptr(scratch), _ptr(x), _ptr(y), _ptr(inf), _stream()),
+           "msm_varying")
     msm_varying.launches += 1
     return x, y, inf[0] != 0
 

@@ -14,6 +14,9 @@ over the lanes.
 
 The three device programs are kernels of csrc/msm.cu (kernels.py:
 msm_precompute, msm_fixed, msm_varying); their plain versions are here.
+On the card the sums take other methods than the plain versions (msm_fixed
+by buckets over the comb lanes, msm_varying by bit windows over the GLV
+split below), which give the same affine sums.
 Points are standard-form affine limbs at the boundary, Montgomery Jacobian
 inside, and the sums come back as standard-form affine coordinates with an
 infinity flag, which are unique: the kernels may sum in any order.
@@ -27,12 +30,20 @@ import numpy as np
 import torch
 
 from ...utils import torchcfg
-from ..bls381.constants import R
+from ..bls381.constants import P, R, X_ABS
 from . import curve_ops as co
 from . import limbs as lb
 
 CHUNK_BITS = 16
 N_CHUNKS = 256 // CHUNK_BITS      # 16 comb rows cover the 256-bit scalar
+
+#: msm_varying's GLV split on the card: lambda = x^2 - 1 is a root of
+#: l^2 + l + 1 = r (r = x^4 - x^2 + 1), so every k < r is k2 lambda + k1
+#: with k1 < lambda and k2 <= lambda + 1, both below 2^128, and the map
+#: (x, y) -> (GLV_BETA x, y), beta a cube root of unity in Fq, is
+#: multiplication by lambda on G1
+GLV_LAMBDA = X_ABS * X_ABS - 1
+GLV_BETA = pow(2, 2 * (P - 1) // 3, P)
 
 #: window widths of the varying-base MSM besides 0 (the bit form)
 ALLOWED_WINDOWS = (2, 4, 5, 6)

@@ -510,6 +510,34 @@ def test_msm_fixed_kernel_matches_plain_and_host(cuda, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", ["one_bucket", "zero", "quarter_identity"])
+def test_msm_fixed_bucket_edges_on_the_card(cuda, case):
+    """The bucket sum's edges over 16 points (256 comb lanes): every lane's
+    chunk equal (one bucket a window, its tree at every level), every
+    chunk 0 (no bucket), and random scalars with every fourth table point
+    the identity (msm_points)."""
+    import random
+
+    from lighthouse_tpu_torch.crypto.bls381.constants import R
+    from lighthouse_tpu_torch.crypto.torchbls import msm as TM
+
+    pts, _ = msm_points(16, 0x118)
+    fixed = TM.FixedBaseMSM(pts, cuda)
+    rng = random.Random(0x119)
+    scalars = [rng.randrange(R) for _ in pts]
+    bits = fixed.bits_tensor(scalars)
+    if case == "one_bucket":
+        bits[:] = torch.tensor([(0xA5C3 >> (15 - b)) & 1 for b in range(16)], device=cuda)
+        scalars = [sum(0xA5C3 << (16 * j) for j in range(TM.N_CHUNKS))] * len(pts)
+    elif case == "zero":
+        bits[:] = 0
+        scalars = [0] * len(pts)
+    got = K.msm_fixed(*fixed._tables, bits)
+    assert_same(got, TM.fixed_msm_plain(*fixed._tables, bits))
+    assert TM.affine_result(*got) == host_msm(pts, scalars)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("window, n", [(0, 4), (0, 32), (4, 4), (4, 32), (4, 256), (2, 8),
                                        (5, 8), (6, 8)])
 def test_msm_varying_kernel_matches_plain_and_host(cuda, window, n):
@@ -566,7 +594,7 @@ def test_msm_varying_refuses_what_its_kernel_does_not_take(cuda):
         K.msm_varying(px, py, ~inf, digits, 3)
     with pytest.raises(ValueError, match="digits"):
         K.msm_varying(px, py, ~inf, digits, 5)
-    for w, past in ((4, 16), (0, 16), (4, -1)):
+    for w, past in ((4, 16), (0, 16), (4, -1), (2, 4), (5, 32), (6, 64)):
         wide = torch.as_tensor(TM.msm_digits(scalars, w).astype(np.int64), device=cuda)
         wide[1, 3] = past
         before = K.msm_varying.launches
