@@ -60,8 +60,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
      lanes with blob 0's scalars, with every chunk equal and with every
      chunk 0, the batch verify's C' and W' buckets at w = 0, 2, 4, 5 and
      6), on 256 points (a quarter of them the identity, too), on the
-     comb's edge scalars (0, 1, R, R - 1) and on [P, -P] and [P, P]; a
-     digit outside its width refused;
+     comb's edge scalars (0, 1, R, R - 1; msm_precompute on their six
+     points, one the identity) and on [P, -P] and [P, P]; a digit outside
+     its width refused;
   7. each kernel's device time from torch.profiler at the three buckets
      (prepare's three launches apart), beside phase 3's CUDA-event times,
      which take in the host's time where a wrapper's Python outlasts its
@@ -349,6 +350,26 @@ def fq_products_msm_precompute(inf_mask) -> int:
     doublings from row 0 to row 15, each row a point of the output."""
     live = int((inf_mask == 0).sum())
     return live * (2 + 15 * 16 * 7)
+
+
+DOUBLING_ROUNDS = 3               # msm.cu join_dbl: dependent product rounds of a doubling
+
+
+def cu_defines(path: str) -> dict:
+    """The `#define NAME expr` lines of a CUDA source whose expression is
+    integer arithmetic on earlier names, evaluated in order (C's division
+    of nonnegative integers as Python's //)."""
+    import re
+
+    consts: dict = {}
+    with open(path) as f:
+        text = f.read()
+    for name, expr in re.findall(r"^#define (\w+) ([\w ()*/+-]+?)\s*(?://.*)?$", text, re.M):
+        try:
+            consts[name] = eval(expr.replace("/", "//"), {"__builtins__": {}}, dict(consts))
+        except NameError:
+            pass
+    return consts
 
 
 def window_digits(scalars, bits: int, c: int):
@@ -808,14 +829,16 @@ def msm_checks(dev, setup, blobs, cbs, pbs, backend) -> tuple[dict, dict]:
     chunk 0; msm_varying on the batch verify's C' and W' at every width,
     0, 2, 4, 5 and 6), on the first MSM_SUBSET points (and on them with
     every fourth point the identity), on the comb's edge scalars (0, 1, R,
-    R - 1 on six points, one of them the identity), and on [P, -P] and
+    R - 1 on six points, one of them the identity, whose tables
+    msm_precompute also makes), and on [P, -P] and
     [P, P] under equal scalars (their lanes in one bucket; comb, and
     varying at w = 4 and 0); the sums at full width against the fixture's
     commitment, C' and W' and the edge cases also against the pure-Python
     curve; a digit outside its width's range refused (msm.REFUSED). Each
     kernel's row: CUDA-event ms, the plain version's ms and the bound at
-    full width. Returns the rows and the full-width arguments (for the
-    profiler)."""
+    full width; msm_precompute's team layout (teams, lanes, blocks, SMs
+    covered, product rounds a point) on the schedule line. Returns the
+    rows and the full-width arguments (for the profiler)."""
     import random
 
     import numpy as np
@@ -921,6 +944,7 @@ def msm_checks(dev, setup, blobs, cbs, pbs, backend) -> tuple[dict, dict]:
     rng = random.Random(0x115)
     six = [pc.g1_mul(pc.G1_GEN, rng.randrange(1, R)) for _ in range(5)]
     six.insert(2, None)
+    check("msm_precompute", "six edge points, one the identity", point_args(six))
     edge = msm.FixedBaseMSM(six, dev)
     for k, want in ((0, None), (1, six[0]), (R, None), (R - 1, pc.g1_neg(six[0]))):
         check("msm_fixed", f"edge {k}", (*edge._tables, edge.bits_tensor([k] + [0] * 5)), want)
@@ -967,6 +991,16 @@ def msm_checks(dev, setup, blobs, cbs, pbs, backend) -> tuple[dict, dict]:
             {"least_by": least_by[name], "kernel_fq_products": own[name]}
             if name in own else {})}
         emit({"phase": "kernel", "path": "kzg", "name": name, **rows[name]})
+    # msm_precompute's teams at full width (msm.cu's defines)
+    cu = cu_defines(os.path.join(ROOT, "lighthouse_tpu_torch", "crypto", "torchbls", "csrc",
+                                 "msm.cu"))
+    n_points = int(pre_args[0].shape[0])
+    blocks = -(-n_points // cu["PRE_TEAMS"])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    schedule["msm_precompute"]["team_layout"] = {
+        "teams": n_points, "lanes": cu["JOIN_LANES"], "blocks": blocks,
+        "threads_per_block": cu["MSM_THREADS"], "sms_covered": min(blocks, sms), "sms": sms,
+        "product_rounds_per_point": (cu["N_CHUNKS"] - 1) * cu["CHUNK_BITS"] * DOUBLING_ROUNDS}
     emit({"phase": "schedule", "path": "kzg", "kernels": schedule,
           "c_prime_terms": len(captured[0][0]), "w_prime_terms": len(captured[1][0]),
           "varying_buckets": [int(var_args["c_prime", 4][0].shape[0]),

@@ -15,6 +15,7 @@ lighthouse/crypto/bls/src/impls/fake_crypto.rs.
 
 from __future__ import annotations
 
+import os
 import secrets
 from typing import Callable, Sequence
 
@@ -126,8 +127,11 @@ def set_backend(name: str):
 
 
 def get_backend():
+    """The active backend; at first use the one LIGHTHOUSE_TPU_BLS_BACKEND
+    names, "torch" by default (the reference's default is its host
+    backend, "python"; the port's entry points run on the card)."""
     if _active_backend is None:
-        set_backend("torch")
+        set_backend(os.environ.get("LIGHTHOUSE_TPU_BLS_BACKEND", "torch"))
     return _active_backend
 
 

@@ -5,7 +5,7 @@
 //   msm_precompute  _precompute_kernel (:134): standard-form affine points
 //                   -> Montgomery Jacobian comb tables T[j][i] =
 //                   2^(16 j) P_i, row j written before its 16 doublings, as
-//                   the scan emits it; one thread per point;
+//                   the scan emits it; a team of JOIN_LANES lanes per point;
 //   msm_fixed       _msm_kernel (:157): sum_l c_l T_l over the comb lanes l
 //                   with 16-bit chunks c_l, its affine form in standard
 //                   form and the infinity flag;
@@ -56,9 +56,16 @@
 // the sum comes back as x = y = 2^384 - 1, which no standard-form
 // coordinate is, so the host's read of it (msm.affine_result) refuses it.
 //
+// msm_precompute, by teams. Its one chain is 240 doublings a point, which
+// no shorter chain may replace (the tables are Jacobian, bit for bit), so
+// each point runs on a team of JOIN_LANES lanes that takes a doubling's
+// products in the join's three rounds, and the teams spread over the card
+// (PRE_TEAMS a block: 4096 points are 128 blocks); lane k < 3 stores
+// coordinate k of each row.
+//
 // The point formulas are curve_ops' jac_double and its complete jac_add
 // (the identity on either side, P == Q takes the doubling, P == -Q gives
-// the identity (one, one, zero)), inline, one thread each or a join team;
+// the identity (one, one, zero)), inline, one thread each or a team;
 // points between kernels sit in global scratch as 36 32-bit words, and no
 // kernel keeps a point table. The interchange layout (24 16-bit limbs in int64) is
 // repacked to 12 32-bit words at the boundary (fq.cuh).
@@ -68,7 +75,8 @@
 
 #define MSM_THREADS 128      // threads of every block but the join's
 #define JOIN_TEAMS 64        // msm_join_kernel's teams: up to 128 terms
-#define JOIN_LANES 4         // threads of a join team: products of a round
+#define JOIN_LANES 4         // threads of a team: products of a round
+#define PRE_TEAMS (MSM_THREADS / JOIN_LANES)   // msm_precompute_kernel's teams a block
 #define CHUNK_BITS 16        // bits of a comb chunk (msm.py CHUNK_BITS)
 #define N_CHUNKS 16          // comb rows (msm.py N_CHUNKS)
 #define WINDOW_BITS 8        // msm_fixed: a chunk is two 8-bit windows
@@ -209,24 +217,153 @@ static __device__ __forceinline__ void g1_load_words(g1 &p, const uint32_t *src)
   }
 }
 
+// ------------------------------------------------------------ teams
+//
+// The serial chains of both sums' join and of the precompute run on teams
+// of JOIN_LANES consecutive lanes of one warp: a point step runs as rounds
+// of up to JOIN_LANES independent Fq products, lane k taking product k, the
+// products exchanged through shared memory between barriers of the warp (a
+// team never spans warps; a barrier of the team's lanes alone would leave
+// a warp's teams diverged, their rounds issued one team after another); a
+// doubling 3 rounds, an addition 5, plus 3 rounds kept for the P == Q
+// doubling. Every team of a block takes every round, so the barriers are
+// uniform; a team with no work in a round computes nothing there. Every
+// lane of a team holds the team's points. The exchange is indexed by the
+// block's array and the team at every round, as the shared array itself:
+// handing each team a pointer to its own slice made the join ~35 % slower.
+
+struct join_team {
+  int team, lane, parity;
+  fp (*xch)[JOIN_TEAMS][JOIN_LANES];   // two buffers of each round's products
+};
+
+static __device__ __forceinline__ void fp_pick(fp &r, int k, const fp &a0, const fp &a1,
+                                               const fp &a2, const fp &a3) {
+#pragma unroll
+  for (int w = 0; w < 12; w++)
+    r.v[w] = k == 0 ? a0.v[w] : k == 1 ? a1.v[w] : k == 2 ? a2.v[w] : a3.v[w];
+}
+
+// one round: lane k < n of a working team computes its own a b, then the
+// warp's barrier; returns the team's products of the round (the buffers
+// alternate, so a round's writes never meet the reads of the one before)
+static __device__ __forceinline__ const fp *join_round(join_team &tm, const fp &a, const fp &b,
+                                                       int n, bool work) {
+  fp *out = tm.xch[tm.parity][tm.team];
+  if (work && tm.lane < n) fp_mul(out[tm.lane], a, b);
+  __syncwarp();
+  tm.parity ^= 1;
+  return out;
+}
+
+// p = 2 p where work: g1_dbl's products in three rounds
+static __device__ __forceinline__ void join_dbl(join_team &tm, g1 &p, bool work) {
+  fp a, b, A, B, YZ, E, XB, C, t, D, X3;
+  fp_pick(a, tm.lane, p.x, p.y, p.y, p.y);
+  fp_pick(b, tm.lane, p.x, p.y, p.z, p.z);
+  const fp *r = join_round(tm, a, b, 3, work);   // X^2, Y^2, Y Z
+  A = r[0];
+  B = r[1];
+  YZ = r[2];
+  fp_x2(E, A);
+  fp_add(E, E, A);
+  fp_add(XB, p.x, B);
+  fp_pick(a, tm.lane, B, XB, E, E);
+  r = join_round(tm, a, a, 3, work);             // B^2, (X + B)^2, E^2
+  C = r[0];
+  fp_sub(D, r[1], A);
+  fp_sub(D, D, C);
+  fp_x2(D, D);
+  fp_x2(t, D);
+  fp_sub(X3, r[2], t);
+  fp_sub(t, D, X3);
+  r = join_round(tm, E, t, 1, work);             // E (D - X3)
+  if (!work) return;
+  fp_x2(C, C);
+  fp_x2(C, C);
+  fp_x2(C, C);
+  fp_sub(p.y, r[0], C);
+  fp_x2(p.z, YZ);
+  p.x = X3;
+}
+
+// p = p + q where work, with g1_add's cases: its products in five rounds,
+// then three rounds that double p where P == Q
+static __device__ __forceinline__ void join_add(join_team &tm, g1 &p, const g1 &q, bool work) {
+  const bool q_inf = fp_is_zero(q.z), p_inf = fp_is_zero(p.z);
+  const bool both = work && !q_inf && !p_inf;
+  fp a, b, U1, S1, H, R, RR, HH, HHH, V, Z3, X3;
+  fp_pick(a, tm.lane, p.z, q.z, p.y, q.y);
+  fp_pick(b, tm.lane, p.z, q.z, q.z, p.z);
+  const fp *r = join_round(tm, a, b, 4, both);   // Z1^2, Z2^2, Y1 Z2, Y2 Z1
+  fp_pick(a, tm.lane, p.x, q.x, r[2], r[3]);
+  fp_pick(b, tm.lane, r[1], r[0], r[1], r[0]);
+  r = join_round(tm, a, b, 4, both);             // U1, U2, S1 = Y1 Z2^3, S2
+  U1 = r[0];
+  S1 = r[2];
+  fp_sub(H, r[1], U1);
+  fp_sub(R, r[3], S1);
+  const bool h0 = fp_is_zero(H), r0 = fp_is_zero(R);
+  const bool general = both && !h0;
+  fp_pick(a, tm.lane, p.z, H, R, R);
+  fp_pick(b, tm.lane, q.z, H, R, R);
+  r = join_round(tm, a, b, 3, general);          // Z1 Z2, H^2, R^2
+  HH = r[1];
+  RR = r[2];
+  fp_pick(a, tm.lane, H, U1, r[0], r[0]);
+  fp_pick(b, tm.lane, HH, HH, H, H);
+  r = join_round(tm, a, b, 3, general);          // H^3, V = U1 H^2, Z3 = Z1 Z2 H
+  HHH = r[0];
+  V = r[1];
+  Z3 = r[2];
+  fp_sub(X3, RR, HHH);
+  fp_x2(a, V);
+  fp_sub(X3, X3, a);
+  fp_sub(a, V, X3);
+  fp_pick(a, tm.lane, a, S1, S1, S1);
+  fp_pick(b, tm.lane, R, HHH, HHH, HHH);
+  r = join_round(tm, a, b, 2, general);          // R (V - X3), S1 H^3
+  fp_sub(b, r[0], r[1]);
+  join_dbl(tm, p, both && h0 && r0);             // P == Q: the doubling of p
+  if (!work || q_inf) return;
+  if (p_inf) {
+    p = q;
+  } else if (general) {
+    p.x = X3;
+    p.y = b;
+    p.z = Z3;
+  } else if (!r0) {
+    g1_set_identity(p);                          // P == -Q
+  }
+}
+
 // ------------------------------------------------------------ precompute
 
+// team t of block b takes point i = b PRE_TEAMS + t: its 16 rows, each
+// stored before its 16 doublings, lane k < 3 storing coordinate k of row
+// j at lane j n + i; the teams past n (in the last block) take the rounds
+// with no work, so every warp meets its barriers whole
 __global__ void __launch_bounds__(MSM_THREADS)
     msm_precompute_kernel(const int64_t *px, const int64_t *py, const int32_t *inf, int n,
                           int64_t *tx, int64_t *ty, int64_t *tz) {
-  const int i = blockIdx.x * MSM_THREADS + threadIdx.x;
-  if (i >= n) return;
+  __shared__ fp xch[2][JOIN_TEAMS][JOIN_LANES];   // PRE_TEAMS of the JOIN_TEAMS used
+  join_team tm{(int)threadIdx.x / JOIN_LANES, (int)threadIdx.x % JOIN_LANES, 0, xch};
+  const int i = blockIdx.x * PRE_TEAMS + tm.team;
+  const bool live = i < n;
   g1 p;
-  g1_load_affine(p, px + 24 * (size_t)i, py + 24 * (size_t)i, inf[i] != 0);
+  g1_set_identity(p);
+  if (live) g1_load_affine(p, px + 24 * (size_t)i, py + 24 * (size_t)i, inf[i] != 0);
+  int64_t *dst = tm.lane == 0 ? tx : tm.lane == 1 ? ty : tz;
 #pragma unroll 1
   for (int j = 0; j < N_CHUNKS; j++) {
-    const size_t lane = (size_t)j * n + i;
-    fp_store(tx + 24 * lane, p.x);
-    fp_store(ty + 24 * lane, p.y);
-    fp_store(tz + 24 * lane, p.z);
+    if (live && tm.lane < 3) {
+      fp c;
+      fp_pick(c, tm.lane, p.x, p.y, p.z, p.z);
+      fp_store(dst + 24 * ((size_t)j * n + i), c);
+    }
     if (j + 1 < N_CHUNKS) {
 #pragma unroll 1
-      for (int k = 0; k < CHUNK_BITS; k++) g1_dbl(p, p);
+      for (int k = 0; k < CHUNK_BITS; k++) join_dbl(tm, p, live);
     }
   }
 }
@@ -397,120 +534,6 @@ __global__ void __launch_bounds__(MSM_THREADS)
 }
 
 // ------------------------------------------------------------ join, affine
-//
-// The join's doublings and additions are the one serial chain of both
-// sums, so each pair of terms is summed by a team of JOIN_LANES threads: a
-// point step runs as rounds of up to JOIN_LANES independent Fq products,
-// lane k taking product k, the products exchanged through shared memory
-// between block barriers (a doubling 3 rounds, an addition 5, plus 3
-// rounds kept for the P == Q doubling). Every team of the block takes every
-// round, so the barriers are uniform; a team with no work in a round
-// computes nothing there. Every lane of a team holds the team's points.
-
-struct join_team {
-  int team, lane, parity;
-  fp (*xch)[JOIN_TEAMS][JOIN_LANES];   // two buffers of each round's products
-};
-
-static __device__ __forceinline__ void fp_pick(fp &r, int k, const fp &a0, const fp &a1,
-                                               const fp &a2, const fp &a3) {
-#pragma unroll
-  for (int w = 0; w < 12; w++)
-    r.v[w] = k == 0 ? a0.v[w] : k == 1 ? a1.v[w] : k == 2 ? a2.v[w] : a3.v[w];
-}
-
-// one round: lane k < n of a working team computes its own a b, then the
-// block's barrier; returns the team's products of the round (the buffers
-// alternate, so a round's writes never meet the reads of the one before)
-static __device__ __forceinline__ const fp *join_round(join_team &tm, const fp &a, const fp &b,
-                                                       int n, bool work) {
-  fp *out = tm.xch[tm.parity][tm.team];
-  if (work && tm.lane < n) fp_mul(out[tm.lane], a, b);
-  __syncthreads();
-  tm.parity ^= 1;
-  return out;
-}
-
-// p = 2 p where work: g1_dbl's products in three rounds
-static __device__ __forceinline__ void join_dbl(join_team &tm, g1 &p, bool work) {
-  fp a, b, A, B, YZ, E, XB, C, t, D, X3;
-  fp_pick(a, tm.lane, p.x, p.y, p.y, p.y);
-  fp_pick(b, tm.lane, p.x, p.y, p.z, p.z);
-  const fp *r = join_round(tm, a, b, 3, work);   // X^2, Y^2, Y Z
-  A = r[0];
-  B = r[1];
-  YZ = r[2];
-  fp_x2(E, A);
-  fp_add(E, E, A);
-  fp_add(XB, p.x, B);
-  fp_pick(a, tm.lane, B, XB, E, E);
-  r = join_round(tm, a, a, 3, work);             // B^2, (X + B)^2, E^2
-  C = r[0];
-  fp_sub(D, r[1], A);
-  fp_sub(D, D, C);
-  fp_x2(D, D);
-  fp_x2(t, D);
-  fp_sub(X3, r[2], t);
-  fp_sub(t, D, X3);
-  r = join_round(tm, E, t, 1, work);             // E (D - X3)
-  if (!work) return;
-  fp_x2(C, C);
-  fp_x2(C, C);
-  fp_x2(C, C);
-  fp_sub(p.y, r[0], C);
-  fp_x2(p.z, YZ);
-  p.x = X3;
-}
-
-// p = p + q where work, with g1_add's cases: its products in five rounds,
-// then three rounds that double p where P == Q
-static __device__ __forceinline__ void join_add(join_team &tm, g1 &p, const g1 &q, bool work) {
-  const bool q_inf = fp_is_zero(q.z), p_inf = fp_is_zero(p.z);
-  const bool both = work && !q_inf && !p_inf;
-  fp a, b, U1, S1, H, R, RR, HH, HHH, V, Z3, X3;
-  fp_pick(a, tm.lane, p.z, q.z, p.y, q.y);
-  fp_pick(b, tm.lane, p.z, q.z, q.z, p.z);
-  const fp *r = join_round(tm, a, b, 4, both);   // Z1^2, Z2^2, Y1 Z2, Y2 Z1
-  fp_pick(a, tm.lane, p.x, q.x, r[2], r[3]);
-  fp_pick(b, tm.lane, r[1], r[0], r[1], r[0]);
-  r = join_round(tm, a, b, 4, both);             // U1, U2, S1 = Y1 Z2^3, S2
-  U1 = r[0];
-  S1 = r[2];
-  fp_sub(H, r[1], U1);
-  fp_sub(R, r[3], S1);
-  const bool h0 = fp_is_zero(H), r0 = fp_is_zero(R);
-  const bool general = both && !h0;
-  fp_pick(a, tm.lane, p.z, H, R, R);
-  fp_pick(b, tm.lane, q.z, H, R, R);
-  r = join_round(tm, a, b, 3, general);          // Z1 Z2, H^2, R^2
-  HH = r[1];
-  RR = r[2];
-  fp_pick(a, tm.lane, H, U1, r[0], r[0]);
-  fp_pick(b, tm.lane, HH, HH, H, H);
-  r = join_round(tm, a, b, 3, general);          // H^3, V = U1 H^2, Z3 = Z1 Z2 H
-  HHH = r[0];
-  V = r[1];
-  Z3 = r[2];
-  fp_sub(X3, RR, HHH);
-  fp_x2(a, V);
-  fp_sub(X3, X3, a);
-  fp_sub(a, V, X3);
-  fp_pick(a, tm.lane, a, S1, S1, S1);
-  fp_pick(b, tm.lane, R, HHH, HHH, HHH);
-  r = join_round(tm, a, b, 2, general);          // R (V - X3), S1 H^3
-  fp_sub(b, r[0], r[1]);
-  join_dbl(tm, p, both && h0 && r0);             // P == Q: the doubling of p
-  if (!work || q_inf) return;
-  if (p_inf) {
-    p = q;
-  } else if (general) {
-    p.x = X3;
-    p.y = b;
-    p.z = Z3;
-  } else if (!r0) {
-    g1_set_identity(p);                          // P == -Q
-  }
-}
 
 // sum_j 2^j X_j over `count` points X (a power of two, at most 2
 // JOIN_TEAMS) in one block of count / 2 teams: level l adds to each pair's
@@ -546,7 +569,8 @@ __global__ void __launch_bounds__(JOIN_TEAMS * JOIN_LANES)
     const bool b_on = on && !fp_is_zero(b.z);
 #pragma unroll 1
     for (int k = 0; k < span; k++) join_dbl(tm, b, b_on);
-    join_add(tm, a, b, on);                      // its rounds' barriers: every read of sh is done
+    join_add(tm, a, b, on);
+    __syncthreads();                             // every team has read sh
     if (on && tm.lane == 0) sh[tm.team] = a;
     __syncthreads();
     acc = a;
@@ -732,7 +756,8 @@ extern "C" long long lh_msm_varying_scratch_words(long long n) {
 extern "C" int lh_msm_precompute(const void *px, const void *py, const void *inf, int n,
                                  void *tx, void *ty, void *tz, void *stream) {
   if (n <= 0) return (int)cudaErrorInvalidValue;
-  msm_precompute_kernel<<<blocks_for(n), MSM_THREADS, 0, (cudaStream_t)stream>>>(
+  msm_precompute_kernel<<<(n + PRE_TEAMS - 1) / PRE_TEAMS, MSM_THREADS, 0,
+                          (cudaStream_t)stream>>>(
       (const int64_t *)px, (const int64_t *)py, (const int32_t *)inf, n, (int64_t *)tx,
       (int64_t *)ty, (int64_t *)tz);
   return (int)cudaGetLastError();

@@ -35,18 +35,22 @@ def _clamp_depth(d: int) -> int:
     return max(lo, min(hi, int(d)))
 
 
-def resolve_depth(explicit=None) -> int:
-    """Explicit argument > LIGHTHOUSE_TPU_PIPELINE_DEPTH > DEFAULT_DEPTH,
-    clamped to DEPTH_CLAMP. A malformed variable is ignored."""
+def resolve_depth(explicit=None) -> tuple:
+    """(depth, source): explicit argument ("explicit") >
+    LIGHTHOUSE_TPU_PIPELINE_DEPTH ("env") > DEFAULT_DEPTH ("default"),
+    clamped to DEPTH_CLAMP at every layer. A malformed variable falls
+    through to the default. The reference's "profile" layer (the autotune
+    plan's pipeline_depth, between env and default) is left out until the
+    port has the autotune plan."""
     if explicit is not None:
-        return _clamp_depth(explicit)
+        return _clamp_depth(explicit), "explicit"
     raw = os.environ.get("LIGHTHOUSE_TPU_PIPELINE_DEPTH", "").strip()
     if raw:
         try:
-            return _clamp_depth(int(raw))
+            return _clamp_depth(int(raw)), "env"
         except ValueError:
             pass
-    return DEFAULT_DEPTH
+    return DEFAULT_DEPTH, "default"
 
 
 class PipelineTicket:
@@ -81,7 +85,7 @@ class PipelinedDispatcher:
     Urgent submissions skip both the wait and the window."""
 
     def __init__(self, depth=None):
-        self.depth = resolve_depth(depth)
+        self.depth = resolve_depth(depth)[0]
         # state lock (window bookkeeping) and a lock that serialises FIFO
         # drains
         self._lock = threading.Lock()

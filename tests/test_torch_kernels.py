@@ -473,13 +473,33 @@ def msm_point_args(pts, dev):
         np.array([p is None for p in pts])))
 
 
+def chain_points(n, seed, every_identity):
+    """n seeded G1 points a + i b (cheap at thousands of points), every
+    every_identity-th the identity (none at 0)."""
+    import random
+
+    from lighthouse_tpu_torch.crypto.bls381 import curve as cv
+    from lighthouse_tpu_torch.crypto.bls381.constants import R
+
+    rng = random.Random(seed)
+    a, b = (cv.g1_mul(cv.G1_GEN, rng.randrange(1, R)) for _ in range(2))
+    pts = []
+    for i in range(n):
+        pts.append(None if every_identity and i % every_identity == every_identity - 1 else a)
+        a = cv.g1_add(a, b)
+    return pts
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 6, 129])
-def test_msm_precompute_kernel_matches_plain(cuda, n):
-    """Every Jacobian limb of the comb tables, identity lanes included."""
+@pytest.mark.parametrize("every_identity", [4, 0])
+@pytest.mark.parametrize("n", [1, 6, 129, 132 * 32 + 1, 4096])
+def test_msm_precompute_kernel_matches_plain(cuda, n, every_identity):
+    """Every Jacobian limb of the comb tables, with every fourth point the
+    identity and with none; 4096 is the KZG setup's width, and 132 x 32 + 1
+    points leave the last block one team."""
     from lighthouse_tpu_torch.crypto.torchbls import msm as TM
 
-    pts, _ = msm_points(n, 0x100 + n)
+    pts = chain_points(n, 0x100 + n, every_identity)
     args = msm_point_args(pts, cuda)
     before = K.msm_precompute.launches
     got = K.msm_precompute(*args)

@@ -1,6 +1,6 @@
-"""csrc/msm.cu's schedules for msm_fixed and msm_varying, restated in Python
-on the pure-Python curve (bls381/curve.py) and held against the host's
-sum_i s_i P_i bit for bit.
+"""csrc/msm.cu's schedules for msm_fixed, msm_varying and msm_precompute,
+restated in Python on the pure-Python curve (bls381/curve.py) and held
+against the host's sum_i s_i P_i bit for bit.
 
 msm_fixed: the two 8-bit windows of each 16-bit comb chunk, the counting
 sort by bucket (msm_hist_kernel, msm_scatter_kernel; the order inside a
@@ -9,8 +9,12 @@ trees of msm_level_kernel (entry and worker offsets, the binary search,
 the grid bound of the host code), the buckets' sums by bit and the join
 of msm_join_kernel. msm_varying: the scalar rebuilt from its digits at
 every width and reduced mod r a bit at a time, the GLV split by long
-division, the slots and their bit windows, the join. The constants are
-read from msm.cu. No JAX, no kernel. Tolerance: exact equality.
+division, the slots and their bit windows, the join. msm_precompute: its
+teams' layout (point, block, team, lane and the rows each lane stores)
+and a team's doubling in the join's three rounds of Montgomery products
+on Python integers, against the port's plain curve_ops.jac_double and
+msm.precompute_plain. The constants are read from msm.cu. No JAX, no
+kernel. Tolerance: exact equality.
 """
 
 import random
@@ -30,12 +34,13 @@ MSM_CU = (Path(__file__).resolve().parents[1] / "lighthouse_tpu_torch" / "crypto
 
 def cu_defines(path):
     """The `#define NAME expr` lines of a CUDA source whose expression is
-    integer arithmetic on earlier names, evaluated in order."""
+    integer arithmetic on earlier names, evaluated in order (C's division
+    of nonnegative integers as Python's //)."""
     consts = {}
-    for name, expr in re.findall(r"^#define (\w+) ([\w ()*+-]+?)\s*(?://.*)?$",
+    for name, expr in re.findall(r"^#define (\w+) ([\w ()*/+-]+?)\s*(?://.*)?$",
                                  path.read_text(), re.M):
         try:
-            consts[name] = eval(expr, {"__builtins__": {}}, dict(consts))
+            consts[name] = eval(expr.replace("/", "//"), {"__builtins__": {}}, dict(consts))
         except NameError:
             pass
     return consts
@@ -46,12 +51,15 @@ CU = cu_defines(MSM_CU)
 # torch and the port's modules load when this file's first test runs, not
 # at collection, so a test worker that only runs the JAX package's tests
 # never loads torch.
-TM = None
+TM = CO = LB = torch = None
 
 
 @pytest.fixture(scope="module", autouse=True)
 def _port():
-    global TM
+    global TM, CO, LB, torch
+    import torch
+    from lighthouse_tpu_torch.crypto.torchbls import curve_ops as CO
+    from lighthouse_tpu_torch.crypto.torchbls import limbs as LB
     from lighthouse_tpu_torch.crypto.torchbls import msm as TM
 
 
@@ -409,3 +417,171 @@ def test_varying_schedule_on_opposite_and_equal_points(pair):
     digits = TM.msm_digits([k, k], 4).astype(np.int64)
     got = varying_model(pts, [True, True], digits, 4)
     assert got == host_msm(pts, [k, k]) == (None if pair == "opposite" else mul(pt, 2 * k % R))
+
+
+# ------------------------------------------------------------ msm_precompute
+
+MONT_ONE = pow(2, 384, P)                 # R mod p: one in Montgomery form
+R_INV = pow(2, -384, P)
+
+
+def precompute_layout(n):
+    """msm_precompute_kernel's threads: the launch's blocks, and per thread
+    (block, threadIdx) its team, lane, warp, point i (live below n) and
+    the (coordinate, table lane) it stores for each row."""
+    lanes, teams, threads = CU["JOIN_LANES"], CU["PRE_TEAMS"], CU["MSM_THREADS"]
+    blocks = (n + teams - 1) // teams     # lh_msm_precompute's grid
+    out = []
+    for b in range(blocks):
+        for t in range(threads):
+            team, lane = divmod(t, lanes)
+            i = b * teams + team
+            live = i < n                  # a team past n takes the rounds with no work
+            stores = [(lane, j * n + i) for j in range(CU["N_CHUNKS"])] if live and lane < 3 else []
+            out.append({"block": b, "thread": t, "team": team, "lane": lane, "warp": t // 32,
+                        "point": i, "live": live, "stores": stores})
+    return blocks, out
+
+
+def test_precompute_launch_is_the_layouts():
+    """The layout above is the kernel's: its grid and block in msm.cu."""
+    text = MSM_CU.read_text()
+    assert re.search(r"msm_precompute_kernel<<<\(n \+ PRE_TEAMS - 1\) / PRE_TEAMS, MSM_THREADS,",
+                     text)
+    assert re.search(r"const int i = blockIdx.x \* PRE_TEAMS \+ tm.team;", text)
+    assert CU["PRE_TEAMS"] * CU["JOIN_LANES"] == CU["MSM_THREADS"]
+    assert 32 % CU["JOIN_LANES"] == 0 and CU["MSM_THREADS"] % 32 == 0   # no team spans warps
+
+
+@pytest.mark.parametrize("n", [1, 6, 129, 132 * 32 + 1, 4096])
+def test_precompute_layout_covers_every_lane_once(n):
+    """Every (coordinate, table lane) of the 16 n rows is stored by exactly
+    one thread, the thread of its point's team whose lane is the
+    coordinate; each team is JOIN_LANES lanes of one warp; every thread of
+    the grid runs (whole warps meet the round barriers) and the tail block
+    holds only the teams left over as live ones."""
+    blocks, threads = precompute_layout(n)
+    assert len(threads) == blocks * CU["MSM_THREADS"]
+    stores = [s for th in threads for s in th["stores"]]
+    assert sorted(stores) == [(c, lane) for c in range(3) for lane in range(CU["N_CHUNKS"] * n)]
+    by_point = {}
+    for th in threads:
+        if th["live"]:
+            by_point.setdefault(th["point"], []).append(th)
+    assert sorted(by_point) == list(range(n))
+    for i, team in by_point.items():
+        assert sorted(th["lane"] for th in team) == list(range(CU["JOIN_LANES"]))
+        assert len({(th["block"], th["warp"]) for th in team}) == 1
+        assert team[0]["block"] == i // CU["PRE_TEAMS"]
+    tail = n - (blocks - 1) * CU["PRE_TEAMS"]
+    assert 1 <= tail <= CU["PRE_TEAMS"]
+    assert sum(th["block"] == blocks - 1 and th["live"] for th in threads) == tail * CU["JOIN_LANES"]
+    if n == 4096:
+        assert blocks == 128              # 4096 points reach 128 of the card's 132 SMs
+
+
+def mont(a, b):
+    """fq.cuh fp_mul: a b R^-1 mod p, fully reduced."""
+    return a * b * R_INV % P
+
+
+def team_round(a, b, n):
+    """join_round: lane k < n of the team computes a[k] b[k]; after the
+    team's barrier every lane reads all n products."""
+    assert n <= CU["JOIN_LANES"] == len(a) == len(b)
+    return [mont(a[k], b[k]) for k in range(n)]
+
+
+def team_dbl(pt):
+    """join_dbl on Montgomery-form Python integers: lane k's operands as
+    fp_pick gives them, the three rounds {X^2, Y^2, Y Z}, {B^2, (X + B)^2,
+    E^2}, {E (D - X3)}, and the additions every lane repeats."""
+    X, Y, Z = pt
+    A, B, YZ = team_round([X, Y, Y, Y], [X, Y, Z, Z], 3)
+    E = (2 * A + A) % P
+    XB = (X + B) % P
+    C, T, F = team_round([B, XB, E, E], [B, XB, E, E], 3)
+    D = 2 * ((T - A - C) % P) % P
+    X3 = (F - 2 * D) % P
+    (EDX,) = team_round([E] * 4, [(D - X3) % P] * 4, 1)
+    return X3, (EDX - 8 * C) % P, 2 * YZ % P
+
+
+def jac_tensor(pts):
+    """Montgomery Jacobian Python integers -> curve_ops' limb tensors."""
+    return tuple(torch.as_tensor(LB.pack_batch([pt[c] for pt in pts]).astype(np.int64))
+                 for c in range(3))
+
+
+def test_team_doubling_rounds_are_jac_double():
+    """240 doublings (a point's whole precompute chain) of seeded points in
+    Montgomery form, one with a Z other than one, the identity (one, one,
+    zero) and the precompute's identity (0, 0, 0), bit for bit after every
+    doubling against curve_ops.jac_double on the limb tensors."""
+    pts = []
+    for x, y in points(3, 0x7EA4):
+        pts.append((x * MONT_ONE % P, y * MONT_ONE % P, MONT_ONE))
+    x, y = points(1, 0x7EA5)[0]
+    z = random.Random(0x7EA6).randrange(2, P)
+    pts.append((x * z * z * MONT_ONE % P, y * z ** 3 * MONT_ONE % P, z * MONT_ONE % P))
+    pts += [(MONT_ONE, MONT_ONE, 0), (0, 0, 0)]
+    jac = jac_tensor(pts)
+    doublings = (CU["N_CHUNKS"] - 1) * CU["CHUNK_BITS"]
+    assert doublings == 240
+    for _ in range(doublings):
+        pts = [team_dbl(pt) for pt in pts]
+        jac = CO.jac_double(jac, CO.FQ_OPS)
+        assert [tuple(LB.unpack_batch(c.numpy())) for c in jac] == [
+            tuple(pt[c] for pt in pts) for c in range(3)]
+    assert pts[-2] == (MONT_ONE, MONT_ONE, 0) and pts[-1] == (0, 0, 0)
+    assert all(pt[2] for pt in pts[:-2])
+
+
+def precompute_model(pts):
+    """msm_precompute_kernel on standard-form affine points (None: the
+    identity, loaded from zeros): each team's chain of team_dbl, its rows
+    stored by the layout's lanes. Returns (tx, ty, tz) as lists of ints."""
+    n = len(pts)
+    tables = [[None] * (CU["N_CHUNKS"] * n) for _ in range(3)]
+    _blocks, threads = precompute_layout(n)
+    stores = {}
+    for th in threads:
+        stores.setdefault(th["point"], []).extend(th["stores"])
+    for i in range(n):
+        x, y = pts[i] or (0, 0)
+        p = (x * MONT_ONE % P, y * MONT_ONE % P, 0 if pts[i] is None else MONT_ONE)
+        rows = []
+        for j in range(CU["N_CHUNKS"]):
+            rows.append(p)
+            if j + 1 < CU["N_CHUNKS"]:
+                for _ in range(CU["CHUNK_BITS"]):
+                    p = team_dbl(p)
+        for c, lane in stores[i]:
+            assert tables[c][lane] is None
+            tables[c][lane] = rows[lane // n][c]
+    return tables
+
+
+@pytest.mark.parametrize("n, every_identity", [(1, 0), (6, 3), (33, 4)])
+def test_precompute_model_is_precompute_plain(n, every_identity):
+    """The whole kernel restated (layout, rounds, stores) equals
+    msm.precompute_plain's tables limb for limb, identities included, and
+    its rows are 2^(16 j) P_i on the curve; 33 points leave a tail block of
+    one team."""
+    pts = points(n, 0x9E0 + n, every_identity)
+    args = [torch.as_tensor(LB.pack_batch([0 if pt is None else pt[c] for pt in pts])
+                            .astype(np.int64)) for c in range(2)]
+    args.append(torch.as_tensor(np.array([pt is None for pt in pts])))
+    plain = TM.precompute_plain(*args)
+    model = precompute_model(pts)
+    assert [LB.unpack_batch(t.numpy()) for t in plain] == model
+    for i, want in enumerate(pts):
+        for j in range(CU["N_CHUNKS"]):
+            X, Y, Z = (model[c][j * n + i] * R_INV % P for c in range(3))
+            if want is None:
+                assert Z == 0
+                continue
+            zi = pow(Z, -1, P)
+            assert (X * zi * zi % P, Y * zi ** 3 % P) == want
+            for _ in range(CU["CHUNK_BITS"]):
+                want = dbl(want)

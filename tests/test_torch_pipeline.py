@@ -154,18 +154,59 @@ def test_failing_oldest_batch_never_poisons_an_admitting_submitter():
 
 
 def test_depth_resolution_precedence(monkeypatch):
-    assert pl.resolve_depth() == 4
+    monkeypatch.delenv("LIGHTHOUSE_TPU_PIPELINE_DEPTH", raising=False)
+    assert pl.resolve_depth() == (4, "default")
     monkeypatch.setenv("LIGHTHOUSE_TPU_PIPELINE_DEPTH", "9")
-    assert pl.resolve_depth() == 9
-    assert pl.resolve_depth(explicit=3) == 3
+    assert pl.resolve_depth() == (9, "env")
+    assert pl.resolve_depth(explicit=3) == (3, "explicit")
     assert pl.PipelinedDispatcher().depth == 9
     # a malformed variable falls through; clamping applies everywhere
     monkeypatch.setenv("LIGHTHOUSE_TPU_PIPELINE_DEPTH", "nope")
-    assert pl.resolve_depth() == 4
+    assert pl.resolve_depth() == (4, "default")
     monkeypatch.setenv("LIGHTHOUSE_TPU_PIPELINE_DEPTH", "40")
-    assert pl.resolve_depth() == 16
-    assert pl.resolve_depth(explicit=99) == 16
-    assert pl.resolve_depth(explicit=0) == 1
+    assert pl.resolve_depth() == (16, "env")
+    assert pl.resolve_depth(explicit=99) == (16, "explicit")
+    assert pl.resolve_depth(explicit=0) == (1, "explicit")
+
+
+@pytest.mark.parametrize("env", [None, "9", "nope", "40"])
+@pytest.mark.parametrize("explicit", [None, 3, 99, 0])
+def test_depth_resolution_is_the_references(monkeypatch, env, explicit):
+    """The port's (depth, source) equals the JAX package's resolve_depth
+    under the same environment, with no autotune plan installed (the
+    reference's "profile" layer, which the port does not have yet)."""
+    from lighthouse_tpu.crypto.jaxbls import pipeline as ref
+
+    monkeypatch.setattr(ref, "_plan", lambda: None)
+    if env is None:
+        monkeypatch.delenv("LIGHTHOUSE_TPU_PIPELINE_DEPTH", raising=False)
+    else:
+        monkeypatch.setenv("LIGHTHOUSE_TPU_PIPELINE_DEPTH", env)
+    assert pl.resolve_depth(explicit) == ref.resolve_depth(explicit)
+
+
+def test_get_backend_honours_the_backend_variable(monkeypatch):
+    """LIGHTHOUSE_TPU_BLS_BACKEND picks the backend at first use, as in the
+    reference; an unknown name raises the same ValueError."""
+    import torch
+
+    from lighthouse_tpu_torch.crypto.bls import api
+
+    monkeypatch.setattr(api, "_active_backend", None)
+    monkeypatch.setenv("LIGHTHOUSE_TPU_BLS_BACKEND", "python")
+    assert isinstance(api.get_backend(), api.PythonBackend)
+    assert api.get_backend() is api._BACKENDS["python"]
+    monkeypatch.setattr(api, "_active_backend", None)
+    monkeypatch.setenv("LIGHTHOUSE_TPU_BLS_BACKEND", "no-such-backend")
+    with pytest.raises(ValueError, match="unknown BLS backend 'no-such-backend'"):
+        api.get_backend()
+    assert api._active_backend is None
+    # unset, the default is the card's backend: without a card it raises
+    # rather than run on the CPU
+    monkeypatch.delenv("LIGHTHOUSE_TPU_BLS_BACKEND")
+    if "torch" not in api._BACKENDS and not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            api.get_backend()
 
 
 def test_cpu_backend_async_matches_the_synchronous_verdict():
