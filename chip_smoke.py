@@ -63,12 +63,29 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
      comb's edge scalars (0, 1, R, R - 1; msm_precompute on their six
      points, one the identity) and on [P, -P] and [P, P]; a digit outside
      its width refused;
-  7. each kernel's device time from torch.profiler at the three buckets
+  7. the tree-hash and epoch paths of lighthouse_tpu_torch.torchhash at
+     the mainnet registry's width, 2^20 validators, driven like the BLS
+     paths: state_root (the reference's state_root_1m scenario: a seeded
+     synthetic state, its cold root, then 4 slots of clone_state, 8
+     validator and 32 balance writes and a re-root; the roots distinct,
+     the last equal to uncached_state_root's host rehash, the balances
+     conserved, the router's device/ok routes and no host/device_error;
+     the host hashlib ladder over the validators' roots as the yardstick)
+     and epoch (process_epoch at slot 3 * SLOTS_PER_EPOCH - 1 through the
+     epoch_deltas kernel, equal to the pure-Python run on a deep copy, no
+     device failure counted); then sha256_ladder, sha256_msgs and
+     epoch_deltas against their plain versions on the card (the ladder on
+     the validators' roots, on 2^20 random leaves, at small widths and on
+     zero leaves, whose levels are ZERO_HASHES; the digests against hashlib
+     at the padding edges; the deltas on the epoch path's inputs, steady
+     and in a leak, and on numerators in [2^63, 2^64));
+  8. each kernel's device time from torch.profiler at the three buckets
      (prepare's three launches apart), beside phase 3's CUDA-event times,
      which take in the host's time where a wrapper's Python outlasts its
      kernel; the MSM kernels' at the KZG path's full width; fq_mont_mul's
-     at each size of the field phase; last, the card's busy share of one
-     KZG batch verify.
+     at each size of the field phase; the tree-hash and epoch kernels' at
+     their paths' width; last, the card's busy share of one KZG batch
+     verify.
 The last two lines are the kernel table and the device line. To time
 another checkout's kernels with this script, copy it into that checkout's
 root and run it there.
@@ -105,6 +122,15 @@ KZG_VERIFY_REPEATS = 5            # batch verifies; the median is reported
 MSM_SUBSET = 256                  # points of the kernels' subset check
 INV_ITERS = 15                    # inversions per chain in product_latency (odd: x -> x^-1)
 INV_N = 1 << 16                   # random elements of the inversion check
+# the tree-hash and epoch paths: the reference's state_root_1m scenario
+# (lighthouse_tpu/loadgen/scenarios.py:341): the mainnet registry, 4 slots
+# of 8 validator and 32 balance writes each, seed 0xC0FFEE
+STATE_ROOT_N, STATE_ROOT_SLOTS, STATE_ROOT_SEED = 1 << 20, 4, 0xC0FFEE
+CHURN_VALIDATORS, CHURN_BALANCES = 8, 32
+EPOCH_N, EPOCH_SEED = 1 << 20, 0xE90C
+STATE_ROOT_PATH, EPOCH_PATH = ("sha256_ladder",), ("epoch_deltas",)
+LADDER_WIDTHS = (1, 2, 63, 64, 65, 1023, 1024, 1025)
+MSG_LENGTHS, MSG_N = (0, 55, 56, 63, 64, 65, 119, 128), 1 << 14
 
 # H100 SXM peaks (NVIDIA data sheet): HBM 3.35 TB/s. 32-bit integer
 # instructions: 64 per clock per SM for multiply-add (IMAD), add, shift,
@@ -115,6 +141,20 @@ INT32_PER_S = 64 * 132 * 1.98e9
 # One 381-bit Montgomery product, 12 x 32-bit limbs (CIOS): 2*12*12 + 12
 # 32x32->64-bit multiply-adds, two IMAD issues each (low and high word).
 IMAD_PER_FQ_MUL = 2 * (2 * 12 * 12 + 12)
+# 32-bit instructions of one SHA-256 compression as csrc/sha256.cu writes
+# it, at Hopper's three-input LOP3 and IADD3: a round is 14 (Sigma1 and
+# Sigma0: 3 funnel shifts and a LOP3 each; ch and maj: a LOP3 each; t1: 2
+# IADD3; a: an IADD3; e: an IADD), a schedule word 10 (sigma0 and sigma1:
+# 2 funnel shifts, a shift and a LOP3 each; the sum: 2 IADD3), the state's
+# final add 8. A merkle node is a message block and the pad block, whose
+# schedule is constant.
+SHA_ROUND_OPS, SHA_SCHEDULE_OPS = 14, 10
+SHA_BLOCK_OPS = 64 * SHA_ROUND_OPS + 48 * SHA_SCHEDULE_OPS + 8
+SHA_NODE_OPS = SHA_BLOCK_OPS + 64 * SHA_ROUND_OPS + 8
+# epoch_deltas per validator, at least: 10 64-bit products (4 32-bit
+# instructions each), 7 divisions by an epoch scalar (as a product by its
+# reciprocal and a correction, 8 each) and 7 selects (2 each)
+EPOCH_OPS = 10 * 4 + 7 * 8 + 7 * 2
 
 
 def emit(obj) -> None:
@@ -194,7 +234,8 @@ def compare(kernel_out, plain_out) -> tuple[bool, int]:
     if len(ks) != len(ps):
         return False, -1
     equal = all(torch.equal(k, p) for k, p in zip(ks, ps))
-    err = max(int((k.long() - p.long()).abs().max()) if k.numel() else 0 for k, p in zip(ks, ps))
+    err = max((int((k.long() - p.long()).abs().max()) if k.numel() else 0
+               for k, p in zip(ks, ps)), default=0)
     return equal, err
 
 
@@ -673,7 +714,29 @@ KERNEL_FUNCTIONS = {
     "msm_fixed": ("msm_hist_kernel", "msm_scatter_kernel", "msm_level_kernel",
                   "msm_join_kernel"),
     "msm_varying": ("msm_recode_kernel", "msm_level_kernel", "msm_join_kernel"),
+    "sha256_ladder": ("sha256_level_kernel",),
+    "sha256_msgs": ("sha256_msgs_kernel",),
+    "epoch_deltas": ("epoch_deltas_kernel",),
 }
+
+
+def kernel_registry() -> dict:
+    """Every kernel of the port, both libraries: name -> (wrapper, plain
+    version, source path in the repository, the JAX program it replaces)."""
+    from lighthouse_tpu_torch.crypto.torchbls import kernels as K
+    from lighthouse_tpu_torch.torchhash import kernels as HK
+
+    return {name: (w, p, f"lighthouse_tpu_torch/{pkg}/csrc/{src}", rep)
+            for pkg, reg in (("crypto/torchbls", K.KERNELS), ("torchhash", HK.KERNELS))
+            for name, (w, p, src, rep) in reg.items()}
+
+
+def reset_launches() -> None:
+    from lighthouse_tpu_torch.crypto.torchbls import kernels as K
+    from lighthouse_tpu_torch.torchhash import kernels as HK
+
+    K.reset_launches()
+    HK.reset_launches()
 
 
 def profile_ms(name, args, reps: int = 3) -> dict:
@@ -686,9 +749,7 @@ def profile_ms(name, args, reps: int = 3) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from lighthouse_tpu_torch.crypto.torchbls import kernels as K
-
-    wrapper = K.KERNELS[name][0]
+    wrapper = kernel_registry()[name][0]
     wrapper(*args)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1092,10 +1153,284 @@ def kzg_phase(drive, launches, dev):
 
 
 
+# ------------------------------------------------------------ tree hash and epoch
+
+
+def sync_timed(fn, *args):
+    """(fn(*args), its wall ms) with the card synchronised on both sides."""
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def state_root_phase(drive, launches) -> tuple:
+    """The state_root path: the reference's state_root_1m scenario through
+    the port's types.BeaconState.hash_tree_root on the "device" hash
+    backend, driven with the launch counts reset (`drive`). Checks the
+    roots distinct, the last equal to uncached_state_root (a host hashlib
+    rehash of a copy, fresh tree cache), the balances conserved, the
+    routes (device/ok, no host/device_error); times the host hashlib
+    ladder over the validators' roots (the reference's "host" route) as
+    the yardstick. Returns the validators' roots, the ladder's leaves,
+    and the host ladder's root over them."""
+    import random
+
+    import numpy as np
+
+    from lighthouse_tpu_torch.ssz import tree_cache as tc
+    from lighthouse_tpu_torch.testing import state_fixtures as fx
+    from lighthouse_tpu_torch.torchhash import router
+    from lighthouse_tpu_torch.types.state_util import clone_state
+
+    router.set_hash_backend("device")
+    t0 = time.perf_counter()
+    spec, types, state = fx.build_synthetic_state(
+        STATE_ROOT_N, participation_seed=STATE_ROOT_SEED & 0xFFFF, cache=False)
+    build_s = time.perf_counter() - t0
+    expected_total = sum(state.balances)
+    routes_before = router.route_totals()
+    times = {"reroot_s": []}
+
+    def churn():
+        st = state
+        t = time.perf_counter()
+        roots = [types.BeaconState.hash_tree_root(st)]
+        times["cold_s"] = time.perf_counter() - t
+        rng, moved = random.Random(STATE_ROOT_SEED), 0
+        for slot in range(1, STATE_ROOT_SLOTS + 1):
+            st = clone_state(st, spec)
+            st.slot = slot
+            for k in range(CHURN_VALIDATORS + CHURN_BALANCES):
+                i = rng.randrange(STATE_ROOT_N)
+                step = 10**9 if k < CHURN_VALIDATORS else 10**8
+                new_bal = max(0, st.balances[i] + rng.randrange(-step, step))
+                moved += new_bal - st.balances[i]
+                st.balances[i] = new_bal
+                if k < CHURN_VALIDATORS:
+                    st.validators[i] = st.validators[i].copy_with(
+                        effective_balance=(new_bal // 10**9) * 10**9)
+            t = time.perf_counter()
+            roots.append(types.BeaconState.hash_tree_root(st))
+            times["reroot_s"].append(time.perf_counter() - t)
+        return st, roots, moved
+
+    (final, roots, moved), path_s = drive("state_root", STATE_ROOT_PATH, churn)
+    after = router.route_totals()
+    routes = {k: v - routes_before.get(k, 0) for k, v in after.items() if v != routes_before.get(k, 0)}
+    t = time.perf_counter()
+    truth = fx.uncached_state_root(types, final)
+    uncached_s = time.perf_counter() - t
+    balance_total = sum(final.balances)
+    # the validators' roots (memoized by the path), and the host hashlib
+    # ladder over them: the reference's "host" route at the same width
+    vt = next(f.type.element for f in types.BeaconState.fields if f.name == "validators")
+    vroots = np.stack([np.frombuffer(vt.hash_tree_root(v), np.uint8) for v in final.validators])
+    router.set_hash_backend("host")
+    t = time.perf_counter()
+    host_root = tc._build(vroots, STATE_ROOT_N.bit_length() - 1)[1]
+    host_ladder_s = time.perf_counter() - t
+    router.set_hash_backend("device")
+    checks = {"roots_distinct": len(set(roots)) == len(roots),
+              "root_matches_uncached": truth == roots[-1],
+              "balances_conserved": balance_total == expected_total + moved,
+              "device_ok_routes": routes.get("device/ok", 0) > 0,
+              "no_device_error": not routes.get("host/device_error")}
+    emit({"phase": "state_root", "validators": STATE_ROOT_N, "slots": STATE_ROOT_SLOTS,
+          "churn": [CHURN_VALIDATORS, CHURN_BALANCES], "build_seconds": build_s,
+          "cold_root_seconds": times["cold_s"], "reroot_seconds": times["reroot_s"],
+          "reroot_median_seconds": sorted(times["reroot_s"])[len(times["reroot_s"]) // 2],
+          "path_seconds": path_s, "uncached_root_seconds": uncached_s,
+          "host_ladder_seconds_2_20": host_ladder_s, "root": roots[-1].hex(),
+          "routes": routes, "checks": checks, "launches": launches_of(launches, "state_root")})
+    if not all(checks.values()):
+        raise SystemExit(f"the state_root path failed its checks: {checks}")
+    return vroots, host_root
+
+
+def epoch_phase(drive, launches, dev) -> tuple:
+    """The epoch path: process_epoch on a seeded 2^20-validator state at
+    slot 3 * SLOTS_PER_EPOCH - 1 on the "device" hash backend, driven with
+    the launch counts reset, against the pure-Python loops on a deep copy
+    ("host" backend): balances and effective balances equal, the
+    epoch_deltas leg counted ok and never error. Returns the arguments the
+    path gave epoch_deltas, on `dev`."""
+    import copy
+
+    from lighthouse_tpu_torch.state_transition import epoch as ep
+    from lighthouse_tpu_torch.testing import state_fixtures as fx
+    from lighthouse_tpu_torch.torchhash import epoch_vectors as ev
+    from lighthouse_tpu_torch.torchhash import router
+
+    t0 = time.perf_counter()
+    spec, types, state = fx.build_synthetic_state(
+        EPOCH_N, participation_seed=EPOCH_SEED, cache=False)
+    state.slot = 3 * spec.preset.SLOTS_PER_EPOCH - 1
+    fork = spec.fork_name_at_slot(state.slot)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = copy.deepcopy(state)
+    copy_s = time.perf_counter() - t0
+    captured, device_leg = [], ev._device_altair_deltas
+
+    def capture(*args):             # keeps the device leg's arrays and scalars
+        captured.append(args)
+        return device_leg(*args)
+
+    before = ev.epoch_totals()
+    router.set_hash_backend("device")
+    ev._device_altair_deltas = capture
+    try:
+        _, device_s = drive("epoch", EPOCH_PATH, lambda: ep.process_epoch(state, spec, types, fork))
+    finally:
+        ev._device_altair_deltas = device_leg
+    totals = {k: v - before.get(k, 0) for k, v in ev.epoch_totals().items()}
+    router.set_hash_backend("host")
+    t0 = time.perf_counter()
+    ep.process_epoch(host, spec, types, fork)
+    host_s = time.perf_counter() - t0
+    router.set_hash_backend("device")
+    checks = {"balances_equal": list(state.balances) == list(host.balances),
+              "effective_balances_equal": [v.effective_balance for v in state.validators]
+              == [v.effective_balance for v in host.validators],
+              "device_ok": totals.get("ok", 0) == 1 and len(captured) == 1,
+              "no_device_error": not totals.get("error")}
+    emit({"phase": "epoch", "validators": EPOCH_N, "slot": int(host.slot), "fork": fork.value,
+          "build_seconds": build_s, "deepcopy_seconds": copy_s,
+          "device_process_epoch_seconds": device_s, "host_process_epoch_seconds": host_s,
+          "epoch_device_totals": totals, "checks": checks,
+          "launches": launches_of(launches, "epoch")})
+    if not all(checks.values()):
+        raise SystemExit(f"the epoch path failed its checks: {checks}")
+    _n, eff, part_masks, eligible, target, scores, *scalars = captured[0]
+    return ev.kernel_inputs(dev, eff, part_masks, eligible, target, scores) + tuple(scalars)
+
+
+def launches_of(launches, path: str) -> dict:
+    """The tree-hash and epoch kernels' launch counts on `path`."""
+    from lighthouse_tpu_torch.torchhash import kernels as HK
+
+    return {k: v for k, v in launches[path].items() if k in HK.KERNELS}
+
+
+def hash_kernel_row(name: str, case: str, args, int_ops: int, bytes_moved: int, reps: int,
+                    plain_check=None) -> dict:
+    """One torchhash kernel on args against its plain version on the card
+    (torch.equal), with its CUDA-event ms, the plain version's ms and its
+    bound from int_ops and bytes_moved."""
+    wrapper, plain, _source, _replaces = kernel_registry()[name]
+    kout, _ = sync_timed(wrapper, *args)
+    pout, plain_ms = sync_timed(plain, *args)
+    equal, err = compare(kout, pout)
+    if plain_check is not None:
+        equal = equal and plain_check(kout)
+    ms = cuda_ms(lambda: wrapper(*args), reps)
+    bms, by = bound_ms(0, bytes_moved, int_ops)
+    row = {"name": name, "case": case, "equal": equal, "max_abs_err": err, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "int_ops": int_ops,
+           "bytes": bytes_moved}
+    emit({"phase": "hash_kernel", **row})
+    if not equal:
+        raise SystemExit(f"{name} disagrees with its plain version on {case}")
+    return row
+
+
+def hash_phase(drive, launches, dev) -> tuple[dict, dict]:
+    """The state_root and epoch paths, then sha256_ladder, sha256_msgs and
+    epoch_deltas against their plain versions on the card. Returns each
+    kernel's row (the path's shape) and its arguments for the profiler."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from lighthouse_tpu_torch.ssz.core import ZERO_HASHES
+    from lighthouse_tpu_torch.torchhash import engine
+    from lighthouse_tpu_torch.torchhash import kernels as HK
+
+    t0 = time.perf_counter()
+    vroots, host_root = state_root_phase(drive, launches)
+    state_root_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    epoch_args = epoch_phase(drive, launches, dev)
+    epoch_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    gen = np.random.default_rng(0x5A256)
+
+    def words(leaves):
+        return torch.from_numpy(engine.words_from_leaves(leaves)).to(dev)
+
+    def ladder_cost(n):
+        nodes = sum(HK.ladder_widths(n))
+        return nodes * SHA_NODE_OPS, 32 * (n + nodes)
+
+    def zero_levels(levels):
+        want = [torch.from_numpy(engine.words_from_leaves(
+            np.frombuffer(z, np.uint8).reshape(1, 32))).to(dev) for z in ZERO_HASHES[1:]]
+        return all(bool((lvl == want[d]).all()) for d, lvl in enumerate(levels))
+
+    rows, args_of = {}, {}
+    vwords = words(vroots)
+    ops, moved = ladder_cost(STATE_ROOT_N)
+    rows["sha256_ladder"] = hash_kernel_row(
+        "sha256_ladder", "validator_roots_2_20", (vwords,), ops, moved, 20,
+        lambda out: engine.leaves_from_words(out[-1].cpu().numpy())[0].tobytes() == host_root)
+    args_of["sha256_ladder"] = (vwords,)
+    cases = [("random_2_20", gen.integers(0, 256, (STATE_ROOT_N, 32), dtype=np.uint8))]
+    cases += [(f"width_{n}", gen.integers(0, 256, (n, 32), dtype=np.uint8)) for n in LADDER_WIDTHS]
+    for case, leaves in cases:
+        ops, moved = ladder_cost(leaves.shape[0])
+        hash_kernel_row("sha256_ladder", case, (words(leaves),), ops, moved, 5)
+    ops, moved = ladder_cost(STATE_ROOT_N)
+    hash_kernel_row("sha256_ladder", "zero_2_20", (words(np.zeros((STATE_ROOT_N, 32), np.uint8)),),
+                    ops, moved, 5, zero_levels)
+
+    # sha256_msgs at the padding edges, against hashlib too
+    for length in MSG_LENGTHS:
+        msgs = gen.integers(0, 256, (MSG_N, length), dtype=np.uint8)
+        mw = torch.from_numpy(engine.msg_words(msgs)).to(dev)
+        blocks = mw.shape[1] // 16
+
+        def hashlib_equal(out, msgs=msgs):
+            got = engine.leaves_from_words(out.cpu().numpy())
+            return all(got[i].tobytes() == hashlib.sha256(msgs[i].tobytes()).digest()
+                       for i in range(MSG_N))
+
+        row = hash_kernel_row("sha256_msgs", f"length_{length}", (mw,),
+                              MSG_N * blocks * SHA_BLOCK_OPS, MSG_N * (length + 32), 20,
+                              hashlib_equal)
+        if length == max(MSG_LENGTHS):
+            rows["sha256_msgs"], args_of["sha256_msgs"] = row, (mw,)
+
+    # epoch_deltas on the path's inputs, steady and in a leak, and on
+    # numerators in [2^63, 2^64): 32 ETH balances, scores near 2^64 / 32 ETH
+    n = int(epoch_args[0].shape[0])
+    epoch_moved = n * (8 + 8 + 7 * 8) + (5 * n + 7) // 8
+    rows["epoch_deltas"] = hash_kernel_row("epoch_deltas", "epoch_path_steady", epoch_args,
+                                           n * EPOCH_OPS, epoch_moved, 20)
+    args_of["epoch_deltas"] = epoch_args
+    hash_kernel_row("epoch_deltas", "epoch_path_leak", epoch_args[:-1] + (True,),
+                    n * EPOCH_OPS, epoch_moved, 5)
+    scores = torch.from_numpy(gen.integers(400_000_000, 500_000_000, n, dtype=np.int64)).to(dev)
+    eff = torch.full((n,), 32 * 10**9, dtype=torch.int64, device=dev)
+    edge = (eff,) + tuple(epoch_args[1:4]) + (scores,) + tuple(epoch_args[5:])
+    wide = int(((eff * scores) < 0).sum())                 # products at or above 2^63
+    hash_kernel_row("epoch_deltas", "near_2_64", edge, n * EPOCH_OPS, epoch_moved, 5,
+                    lambda out: wide > n // 2)
+    emit({"phase": "hash_paths_seconds", "state_root": state_root_s, "epoch": epoch_s,
+          "kernel_checks": time.perf_counter() - t0, "near_2_64_products": wide})
+    return rows, args_of
+
+
 # ------------------------------------------------------------ phases
 
 
 def main() -> int:
+    script_t0 = time.perf_counter()
     if not os.path.exists(FIXTURES) or not os.path.isdir(os.path.join(ROOT, "lighthouse_tpu_torch")):
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 2
@@ -1124,17 +1459,23 @@ def main() -> int:
           "count": torch.cuda.device_count(), "python": sys.version.split()[0],
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
-    # the path's library and latency.cu's, their nvcc runs all started together
+    # the BLS paths' library, latency.cu's and the tree-hash and epoch
+    # kernels' (lh_hash), their nvcc runs all started together
     from concurrent.futures import ThreadPoolExecutor
 
-    with ThreadPoolExecutor(2) as pool:
-        kl_future = pool.submit(K.library)
+    from lighthouse_tpu_torch.torchhash import kernels as HK
+
+    with ThreadPoolExecutor(3) as pool:
+        kl_future, hash_future = pool.submit(K.library), pool.submit(HK.library)
         lat = K.latency_library()
-        kl = kl_future.result()
+        kl, hl = kl_future.result(), hash_future.result()
     emit({"phase": "build", "nvcc_seconds": round(kl.build_seconds, 3),
           "library": os.path.relpath(str(kl.path), ROOT), "ptxas": ptxas_summary(kl.ptxas_log),
           "latency_library": os.path.relpath(str(lat.path), ROOT),
-          "latency_ptxas": ptxas_summary(lat.ptxas_log)})
+          "latency_ptxas": ptxas_summary(lat.ptxas_log),
+          "hash_library": os.path.relpath(str(hl.path), ROOT),
+          "hash_nvcc_seconds": round(hl.build_seconds, 3),
+          "hash_ptxas": ptxas_summary(hl.ptxas_log)})
 
     # 2. field self-test and sweep ------------------------------------------
     field_cases = field_phase(dev)
@@ -1313,11 +1654,11 @@ def main() -> int:
     def drive(path: str, required, fn, settle: bool = True):
         if settle:                           # start on an idle card
             torch.cuda.synchronize()
-        K.reset_launches()
+        reset_launches()
         t = time.perf_counter()
         out = fn()
         seconds = time.perf_counter() - t
-        launches[path] = {name: K.KERNELS[name][0].launches for name in K.KERNELS}
+        launches[path] = {name: k[0].launches for name, k in kernel_registry().items()}
         missing = [k for k in required if launches[path][k] <= 0]
         if missing:
             raise SystemExit(f"kernels not launched on the {path} path: {missing}")
@@ -1467,22 +1808,26 @@ def main() -> int:
     # its allocations
     msm_rows, msm_args, kzg_verify = kzg_phase(drive, launches, dev)
 
+    # the tree-hash and epoch paths at the mainnet registry's width, then
+    # their kernels against the plain versions
+    hash_rows, hash_args = hash_phase(drive, launches, dev)
+
     # the kernel line: the gossip path's numbers (the MSM kernels': the KZG
-    # path's), then each path's launches and the sync and urgent buckets'
-    # checks
+    # path's; the tree-hash and epoch kernels': their paths'), then each
+    # path's launches and the sync and urgent buckets' checks
     table = {}
-    for name, (_w, _p, source, replaces) in K.KERNELS.items():
-        g = msm_rows[name] if name in msm_rows else checks["gossip"][name]
-        main_path = "kzg" if name in msm_rows else "gossip"
+    main_paths = {"sha256_ladder": "state_root", "epoch_deltas": "epoch", "sha256_msgs": "state_root"}
+    for name, (_w, _p, source, replaces) in kernel_registry().items():
+        g = msm_rows.get(name) or hash_rows.get(name) or checks["gossip"][name]
+        main_path = "kzg" if name in msm_rows else main_paths.get(name, "gossip")
         table[name] = {
-            "name": name, "route": "cuda",
-            "source": f"lighthouse_tpu_torch/crypto/torchbls/csrc/{source}",
+            "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[main_path][name],
             "max_abs_err": g["max_abs_err"], "ms": g["ms"], "plain_ms": g["plain_ms"],
             "bound_ms": g["bound_ms"], "bound_by": g["bound_by"], "library_ms": None,
             "equal": g["equal"], "launches_by_path": {path: launches[path][name] for path in launches},
         }
-        if name not in msm_rows:
+        if name in checks["sync"]:
             table[name].update(sync=checks["sync"][name], urgent=checks["urgent"][name])
 
     # each kernel's device ms from the profiler (prepare's three launches
@@ -1502,11 +1847,16 @@ def main() -> int:
           "msm_varying_w_prime": profile_ms("msm_varying", msm_args["w_prime"])})
     for name, d in device.items():
         table[name]["device_ms"] = d["kernel_ms"]
+    device = {name: profile_ms(name, args) for name, args in hash_args.items()}
+    emit({"phase": "device_ms", "path": "state_root/epoch", "kernels": device})
+    for name, d in device.items():
+        table[name]["device_ms"] = d["kernel_ms"]
     emit_field_device_ms(field_cases)
     # last: the one long profiler session, so no short one follows it
     emit({"phase": "kzg_device_share", **device_share(kzg_verify)})
 
-    emit({"kernels": [table[k] for k in K.KERNELS]})
+    emit({"phase": "script_seconds", "seconds": time.perf_counter() - script_t0})
+    emit({"kernels": [table[k] for k in kernel_registry()]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -213,6 +213,18 @@ def test_import_and_cpu_verify_load_no_jax():
         "assert api._BACKENDS['python'].verify_single(pk, msg, sig)\n"
         "assert be.g1_msm([cv.G1_GEN, None], [3, 5]) == cv.g1_mul(cv.G1_GEN, 3)\n"
         "assert msm.FixedBaseMSM([cv.G1_GEN], 'cpu').msm([2]) == cv.g1_mul(cv.G1_GEN, 2)\n"
+        "import os\n"
+        "os.environ['LIGHTHOUSE_TPU_EPOCH_VEC_MIN'] = '1'\n"
+        "from lighthouse_tpu_torch.torchhash import engine, epoch_vectors, router\n"
+        "from lighthouse_tpu_torch.testing import state_fixtures as fx\n"
+        "from lighthouse_tpu_torch.state_transition import epoch as ep\n"
+        "engine.set_device('cpu')\n"
+        "router.ROUTER.min_leaves = 64\n"
+        "spec, types, st = fx.build_synthetic_state(300, participation_seed=1, slot=23)\n"
+        "assert types.BeaconState.hash_tree_root(st) == fx.uncached_state_root(types, st)\n"
+        "assert router.route_totals().get('device/ok') and not router.route_totals().get('host/device_error')\n"
+        "ep.process_epoch(st, spec, types, spec.fork_name_at_slot(st.slot))\n"
+        "assert epoch_vectors.epoch_totals() == {'ok': 1.0}\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'lighthouse_tpu.'))"
         " or m == 'lighthouse_tpu']\n"
         "assert not bad, bad\n"

@@ -622,3 +622,119 @@ def test_msm_varying_refuses_what_its_kernel_does_not_take(cuda):
         assert K.msm_varying.launches == before + 1
         with pytest.raises(ValueError, match="outside"):
             TM.affine_result(*out)
+
+
+# ------------------------------------------------------------ tree hash and epoch (torchhash)
+
+HASH_KERNELS = {"epoch_deltas": "_device_epoch_kernel", "sha256_ladder": "_make_ladder",
+                "sha256_msgs": "sha256_msgs_device"}
+
+
+@pytest.mark.parametrize("name", sorted(HASH_KERNELS))
+def test_hash_kernel_table_points_at_sources_and_jax_programs(name):
+    """Each torchhash kernel replaces a jitted program of the JAX package's
+    jaxhash/: its `replaces` line holds that program's def."""
+    from lighthouse_tpu_torch.torchhash import kernels as HK
+
+    assert sorted(HK.KERNELS) == sorted(HASH_KERNELS)
+    assert not set(HK.KERNELS) & set(K.KERNELS)
+    _wrapper, _plain, source, replaces = HK.KERNELS[name]
+    assert (HK.CSRC / source).exists() and source in HK.SOURCES
+    path, line = replaces.split(":")
+    text = (REPO / path).read_text().splitlines()
+    assert re.search(rf"^def {HASH_KERNELS[name]}\(", text[int(line) - 1]), replaces
+
+
+def hash_words(n, seed, dev):
+    a = np.random.default_rng(seed).integers(-(1 << 31), 1 << 31, (n, 8), dtype=np.int64)
+    return torch.as_tensor(a.astype(np.int32), device=dev)
+
+
+def epoch_args(n, seed, dev, leaking=False, big_scores=False):
+    """Seeded epoch inputs: effective balances of 0-32 ETH, flag masks, and
+    scores below 50 or, with big_scores, near 2^64 / 32 ETH."""
+    rng = np.random.default_rng(seed)
+    eff = rng.choice([0, 16, 31, 32, 32], n).astype(np.int64) * 10**9
+    hi = 500_000_000 if big_scores else 50
+    scores = rng.integers(0, hi, n, dtype=np.int64)
+    masks = [torch.as_tensor(rng.random(s) < 0.8, device=dev) for s in ((3, n), n, n)]
+    return (torch.as_tensor(eff, device=dev), *masks, torch.as_tensor(scores, device=dev),
+            21_845, 10**9, [n * 7, n * 8, n * 6], n * 30, 4 * 50_331_648, leaking)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2, 63, 64, 65, 1023, 1024, 1025, 1 << 16])
+def test_sha256_ladder_matches_plain_on_the_card(n, cuda):
+    from lighthouse_tpu_torch.torchhash import kernels as HK
+
+    words = hash_words(n, 0x5A + n, cuda)
+    before = HK.sha256_ladder.launches
+    got = HK.sha256_ladder(words)
+    torch.cuda.synchronize()
+    assert HK.sha256_ladder.launches == before + len(HK.ladder_widths(n))  # one a level
+    assert [g.shape[0] for g in got] == HK.ladder_widths(n)
+    assert_same(got, HK.sha256_ladder_plain(words))
+    # an offset view (not on a 16-byte boundary) gives the same levels
+    if n > 2:
+        assert_same(HK.sha256_ladder(words[1:]), HK.sha256_ladder_plain(words[1:]))
+
+
+@pytest.mark.cuda
+def test_sha256_ladder_of_zero_leaves_on_the_card(cuda):
+    from lighthouse_tpu_torch.ssz.core import ZERO_HASHES
+    from lighthouse_tpu_torch.torchhash import engine
+    from lighthouse_tpu_torch.torchhash import kernels as HK
+
+    levels = HK.sha256_ladder(torch.zeros((1 << 12, 8), dtype=torch.int32, device=cuda))
+    assert [engine.leaves_from_words(lvl[:1].cpu().numpy())[0].tobytes()
+            for lvl in levels] == ZERO_HASHES[1:13]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("length", [0, 55, 56, 63, 64, 65, 119, 128])
+def test_sha256_msgs_matches_hashlib_on_the_card(length, cuda):
+    import hashlib
+
+    from lighthouse_tpu_torch.torchhash import engine
+    from lighthouse_tpu_torch.torchhash import kernels as HK
+
+    engine.set_device(cuda)
+    try:
+        msgs = np.random.default_rng(length).integers(0, 256, (300, length), dtype=np.uint8)
+        before = HK.sha256_msgs.launches
+        got = engine.sha256_msgs_device(msgs)
+        assert HK.sha256_msgs.launches == before + 1
+    finally:
+        engine.set_device(None)
+    assert all(got[i].tobytes() == hashlib.sha256(msgs[i].tobytes()).digest() for i in range(300))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["steady", "leak", "near_2_64"])
+@pytest.mark.parametrize("n", [1, 255, 4097])
+def test_epoch_deltas_matches_plain_on_the_card(case, n, cuda):
+    from lighthouse_tpu_torch.torchhash import kernels as HK
+
+    args = epoch_args(n, 0xE0 + n, cuda, leaking=case == "leak", big_scores=case == "near_2_64")
+    before = HK.epoch_deltas.launches
+    got = HK.epoch_deltas(*args)
+    torch.cuda.synchronize()
+    assert HK.epoch_deltas.launches == before + 1
+    assert_same(got, HK.epoch_deltas_plain(*args))
+    if case == "near_2_64":
+        eff, scores = args[0].cpu().tolist(), args[4].cpu().tolist()
+        assert any(e * s >= 2**63 for e, s in zip(eff, scores)) or n == 1
+
+
+def test_hash_wrappers_take_the_plain_versions_on_the_cpu():
+    from lighthouse_tpu_torch.torchhash import kernels as HK
+
+    for name, args in (("sha256_ladder", (hash_words(65, 1, "cpu"),)),
+                       ("sha256_msgs", (hash_words(6, 2, "cpu").reshape(3, 16),)),
+                       ("epoch_deltas", epoch_args(33, 3, "cpu", big_scores=True))):
+        wrapper, plain, _source, _replaces = HK.KERNELS[name]
+        before = wrapper.launches
+        assert_same(wrapper(*args), plain(*args))
+        assert wrapper.launches == before
+    with pytest.raises(ValueError, match="device"):
+        HK.epoch_deltas(*epoch_args(4, 4, "meta"))
