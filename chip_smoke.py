@@ -79,7 +79,26 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
      zero leaves, whose levels are ZERO_HASHES; the digests against hashlib
      at the padding edges; the deltas on the epoch path's inputs, steady
      and in a leak, and on numerators in [2^63, 2^64));
-  8. each kernel's device time from torch.profiler at the three buckets
+  8. hybrid: bls.set_backend("hybrid") over the same card, the launch counts
+     reset at its start: the router's probe waited for (its seconds and
+     current_device_key() printed), which must end "up"; the urgent (4, 1)
+     verify of small_*[0] first to host/device_cold (the warm in the
+     background), then to device/ok, a tampered one false; three gossip
+     (64, 128) verifies through the router alternated with three straight
+     through "torch" (the medians' difference is the router's overhead),
+     the tampered batch false; 8 verify_signature_sets_async at (64, 128),
+     the 5th tampered, seven true and one false in order; AggregateVerify
+     of the 64 messages; the KZG fixture's 6 commitments through the
+     router's g1_msm_fixed, equal to the fixture's. bls_hybrid_route_total
+     by path and reason: one host/device_cold, every other verify
+     device/ok (no host/device_error, host/device_down, host/circuit_open),
+     bls_device_circuit_state 0, every BLS path kernel, fq_mont_mul and
+     msm_fixed launched. Then the device ledger, reset at the phase's
+     start: a state root and process_epoch at 2^12 validators book the
+     tree_hash and epoch tenants; bls, tree_hash and epoch each closed an
+     interval, busy + contended + idle equals the ledger's window on the
+     one chip (relative 1e-6); the snapshot per workload printed;
+  9. each kernel's device time from torch.profiler at the three buckets
      (prepare's three launches apart), beside phase 3's CUDA-event times,
      which take in the host's time where a wrapper's Python outlasts its
      kernel; the MSM kernels' at the KZG path's full width; fq_mont_mul's
@@ -129,6 +148,9 @@ STATE_ROOT_N, STATE_ROOT_SLOTS, STATE_ROOT_SEED = 1 << 20, 4, 0xC0FFEE
 CHURN_VALIDATORS, CHURN_BALANCES = 8, 32
 EPOCH_N, EPOCH_SEED = 1 << 20, 0xE90C
 STATE_ROOT_PATH, EPOCH_PATH = ("sha256_ladder",), ("epoch_deltas",)
+PROBE_WAIT_S = 300                # the hybrid router's probe and urgent warm, at most
+HYBRID_EXTRA = ("fq_mont_mul", "msm_fixed")   # AggregateVerify's and KZG's kernels in the hybrid phase
+HYBRID_STATE_N = 1 << 12          # the hybrid phase's ledger step: above the hash and epoch thresholds
 LADDER_WIDTHS = (1, 2, 63, 64, 65, 1023, 1024, 1025)
 MSG_LENGTHS, MSG_N = (0, 55, 56, 63, 64, 65, 119, 128), 1 << 14
 
@@ -1426,6 +1448,182 @@ def hash_phase(drive, launches, dev) -> tuple[dict, dict]:
     return rows, args_of
 
 
+# ------------------------------------------------------------ hybrid router
+
+
+def hybrid_routes() -> dict:
+    """bls_hybrid_route_total by "path/reason"."""
+    from lighthouse_tpu_torch.crypto.bls import hybrid
+
+    return {f"{p}/{r}": c.value for (p, r), c in hybrid._ROUTE_DECISIONS.children()}
+
+
+def hybrid_phase(launches, smi, att, tampered, single, rands, agg) -> None:
+    """The hybrid router on the card (bls.set_backend("hybrid")), its launch
+    counts reset at its start and read before the ledger step: the probe
+    waited for and "up"; the urgent (4, 1) verify first to host/device_cold,
+    then, after its warm, to device/ok, a tampered one false; three gossip
+    (64, 128) verifies through the router alternated with three straight
+    through the "torch" backend (the medians' difference is the router's
+    overhead), the tampered batch false; 8 async submissions with the 5th
+    tampered; AggregateVerify; the KZG fixture's 6 commitments through the
+    router's g1_msm_fixed. Every verify after the urgent warm-up routes to
+    device/ok; no host/device_error, host/device_down or host/circuit_open;
+    the breaker closed; every BLS path kernel, fq_mont_mul and msm_fixed
+    launched. Then the device ledger, reset at the phase's start: a
+    state root and process_epoch at HYBRID_STATE_N validators book the
+    tree_hash and epoch tenants; bls, tree_hash and epoch each closed an
+    interval, and busy + contended + idle equals the ledger's window."""
+    import statistics
+    import threading
+
+    from lighthouse_tpu_torch.autotune import profile as at_profile
+    from lighthouse_tpu_torch.crypto import bls, kzg
+    from lighthouse_tpu_torch.crypto.bls import hybrid
+    from lighthouse_tpu_torch.crypto.bls381 import serde
+    from lighthouse_tpu_torch.observability.device_ledger import LEDGER
+    from lighthouse_tpu_torch.state_transition import epoch as ep
+    from lighthouse_tpu_torch.testing import state_fixtures as fx
+    from lighthouse_tpu_torch.utils import fixtures
+
+    LEDGER.reset()
+    reset_launches()
+    routes0 = hybrid_routes()
+
+    def routes_since(before) -> dict:
+        return {k: v - before.get(k, 0) for k, v in hybrid_routes().items()
+                if v != before.get(k, 0)}
+
+    def timed(fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        return out, time.perf_counter() - t
+
+    # 1. the probe, waited for
+    router = bls.set_backend("hybrid")
+    t0 = time.perf_counter()
+    router._ensure_probe()
+    router._probe_done.wait(PROBE_WAIT_S)
+    probe_s = time.perf_counter() - t0
+    key = at_profile.current_device_key()
+    emit({"phase": "hybrid_probe", "device": smi, "state": router._state,
+          "probe_seconds": probe_s, "device_key": key})
+    if router._state != "up":
+        raise SystemExit(f"the hybrid router's probe ended {router._state!r}, want 'up'")
+
+    # 2. urgent (4, 1): host while cold, a warm in the background, then the card
+    s0 = single
+    bad_single = [bls.SignatureSet(s0.signature, s0.signing_keys, bytes([s0.message[0] ^ 1]) + s0.message[1:])]
+    bucket = router._bucket([s0])
+    warm_at = []
+
+    def watch_warm():                       # the warm runs beside the host verify
+        while bucket not in router._warm_buckets and time.perf_counter() - t0 < PROBE_WAIT_S:
+            time.sleep(0.001)
+        warm_at.append(time.perf_counter())
+
+    before = hybrid_routes()
+    t0 = time.perf_counter()
+    watcher = threading.Thread(target=watch_warm)
+    watcher.start()
+    cold_ok, cold_s = timed(bls.verify_signature_sets, [s0], rands)
+    watcher.join()
+    warm_s = warm_at[0] - t0
+    cold_routes = routes_since(before)
+    before = hybrid_routes()
+    urgent_ok, urgent_s = timed(bls.verify_signature_sets, [s0], rands)
+    urgent_bad = bls.verify_signature_sets(bad_single, rands)
+    urgent_routes = routes_since(before)
+
+    # 3. gossip (64, 128): hybrid and straight "torch", alternated
+    hybrid_s, direct_s, gossip_ok = [], [], []
+    for _ in range(VERIFY_REPEATS):
+        bls.set_backend("hybrid")
+        ok, dt = timed(bls.verify_signature_sets, att, rands)
+        gossip_ok.append(ok)
+        hybrid_s.append(dt)
+        bls.set_backend("torch")
+        ok, dt = timed(bls.verify_signature_sets, att, rands)
+        gossip_ok.append(ok)
+        direct_s.append(dt)
+    bls.set_backend("hybrid")
+    gossip_bad = bls.verify_signature_sets(tampered, rands)
+
+    # 4. pipelined: 8 async submissions, the 5th tampered
+    batches = [tampered if i == 4 else att for i in range(PIPELINED)]
+    handles, pipelined_s = timed(lambda: [bls.verify_signature_sets_async(b, rands) for b in batches])
+    verdicts = [h.result() for h in handles]
+
+    # 5. AggregateVerify of the 64 distinct messages
+    agg_pks, msgs, agg_sig = agg
+    agg_ok, agg_s = timed(bls.aggregate_verify, agg_pks, msgs, agg_sig)
+
+    # 6. the KZG fixture's commitments through the router's g1_msm_fixed
+    kz = fixtures.load_kzg(FIXTURES)
+    setup = kzg.TrustedSetup(kz["g1_lagrange"], kz["g2_monomial"],
+                             kzg._fr_roots_of_unity(len(kz["g1_lagrange"])))
+    commits, commit_s = timed(lambda: [kzg.blob_to_kzg_commitment(b, setup) for b in kz["blobs"]])
+    commits_equal = [c == serde.g1_decompress(cb) for c, cb in zip(commits, kz["commitments"])]
+
+    # 7. routes and launches
+    launches["hybrid"] = {name: k[0].launches for name, k in kernel_registry().items()}
+    routes = routes_since(routes0)
+    required = set(MAIN_PATH) | set(HYBRID_EXTRA)
+    n_device = 2 + VERIFY_REPEATS + 1 + PIPELINED + 1    # urgent, gossip, tampered, async, aggregate
+    checks = {
+        "probe_up": router._state == "up",
+        "urgent_cold_to_host": cold_ok is True and cold_routes == {"host/device_cold": 1},
+        "urgent_warm_to_device": urgent_ok is True and urgent_bad is False
+        and urgent_routes == {"device/ok": 2},
+        "gossip": gossip_ok == [True] * (2 * VERIFY_REPEATS) and gossip_bad is False,
+        "pipelined": verdicts == [i != 4 for i in range(PIPELINED)],
+        "aggregate_verify": agg_ok is True,
+        "kzg_commitments_equal": all(commits_equal) and len(commits_equal) == KZG_BLOBS,
+        "routes": routes == {"host/device_cold": 1, "device/ok": n_device},
+        "circuit_closed": hybrid._CIRCUIT_STATE.value == 0 and router._breaker.state() == "closed",
+        "kernels_launched": all(launches["hybrid"][k] > 0 for k in required),
+    }
+    emit({"phase": "hybrid", "device": smi, "probe_seconds": probe_s,
+          "urgent": {"bucket": list(bucket[1]), "lane": bucket[0], "cold_host_seconds": cold_s,
+                     "first_dispatch_seconds": warm_s, "warm": bucket in router._warm_buckets,
+                     "device_seconds": urgent_s},
+          "gossip": {"bucket": [len(att), N_PKS], "hybrid_seconds": hybrid_s,
+                     "direct_seconds": direct_s, "hybrid_median_seconds": statistics.median(hybrid_s),
+                     "direct_median_seconds": statistics.median(direct_s),
+                     "first_dispatch_seconds": hybrid_s[0]},
+          "pipelined": {"verdicts": verdicts, "submit_seconds": pipelined_s},
+          "aggregate_verify_seconds": agg_s, "kzg_commitments_seconds": commit_s,
+          "routes": routes, "launches": launches["hybrid"], "checks": checks})
+    if not all(checks.values()):
+        raise SystemExit(f"the hybrid phase failed its checks: {checks}")
+
+    # 8. the device ledger: tree_hash and epoch intervals, then conservation
+    spec, types, state = fx.build_synthetic_state(HYBRID_STATE_N, participation_seed=EPOCH_SEED, cache=False)
+    types.BeaconState.hash_tree_root(state)
+    state.slot = 3 * spec.preset.SLOTS_PER_EPOCH - 1
+    ep.process_epoch(state, spec, types, spec.fork_name_at_slot(state.slot))
+    bls.set_backend("torch")
+    snap = LEDGER.snapshot()
+    closed, busy = {}, {}
+    for track, _name, t0, t1, _args in LEDGER.perfetto_device_timeline():
+        if not track.endswith(":wait"):
+            closed[track] = closed.get(track, 0) + 1
+            busy[track] = busy.get(track, 0.0) + (t1 - t0)
+    cons = snap["conservation"]
+    chip = cons["per_chip"][0]
+    total = chip["busy"] + chip["contention_wait"] + chip["idle"]
+    ledger_checks = {
+        "bls_tree_hash_epoch_closed": all(closed.get(w, 0) > 0 for w in ("bls", "tree_hash", "epoch")),
+        "conservation": len(cons["per_chip"]) == 1 and abs(total - cons["wall"]) <= 1e-6 * cons["wall"],
+        "no_open_intervals": not snap["open_intervals"],
+    }
+    emit({"phase": "hybrid_ledger", "device": smi, "validators": HYBRID_STATE_N,
+          "closed_intervals": closed, "busy_seconds": busy, "contention": snap["contention"],
+          "registry": snap["registry"], "conservation": cons, "checks": ledger_checks})
+    if not all(ledger_checks.values()):
+        raise SystemExit(f"the device ledger failed its checks: {ledger_checks}")
+
+
 # ------------------------------------------------------------ phases
 
 
@@ -1811,6 +2009,9 @@ def main() -> int:
     # the tree-hash and epoch paths at the mainnet registry's width, then
     # their kernels against the plain versions
     hash_rows, hash_args = hash_phase(drive, launches, dev)
+
+    # the hybrid router over the same card, and the device ledger it books
+    hybrid_phase(launches, smi, att, tampered, single, rands, (agg_pks, msgs, agg_sig))
 
     # the kernel line: the gossip path's numbers (the MSM kernels': the KZG
     # path's; the tree-hash and epoch kernels': their paths'), then each

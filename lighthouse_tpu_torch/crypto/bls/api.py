@@ -7,9 +7,11 @@ blst.rs:35-117): with random nonzero 64-bit coefficients z_i (z_0 = 1),
     prod_i e(z_i * aggpk_i, H(m_i)) * e(-g1, sum_i z_i * sig_i) == 1
 
 Backends: "torch" (crypto/torchbls, loaded at first use: it resolves the
-CUDA device), "python", the pure-Python ground truth (KZG's host fallback,
-and the hybrid router's host lane once it is ported), and "fake", which
-validates nothing and proves the batch plumbing, like
+CUDA device), "hybrid" (crypto/bls/hybrid.py, loaded at first use: it
+routes each verify to the card or to the host and probes the card on its
+own thread), "python", the pure-Python ground truth (KZG's host fallback
+and the hybrid router's host lane), and "fake", which validates nothing
+and proves the batch plumbing, like
 lighthouse/crypto/bls/src/impls/fake_crypto.rs.
 """
 
@@ -112,14 +114,27 @@ def _load_torch_backend():
     return backend
 
 
+def _load_hybrid_backend():
+    """Host/device routing policy (crypto/bls/hybrid.py): urgent or tiny
+    verifies ride the host path while the card is cold, absent, or over
+    its latency budget. Constructing it touches no device."""
+    from .hybrid import HybridBackend
+
+    backend = HybridBackend()
+    register_backend("hybrid", backend)
+    return backend
+
+
 def available_backends() -> list[str]:
-    return sorted(set(_BACKENDS) | {"torch"})
+    return sorted(set(_BACKENDS) | {"torch", "hybrid"})
 
 
 def set_backend(name: str):
     global _active_backend
     if name == "torch" and "torch" not in _BACKENDS:
         _load_torch_backend()
+    if name == "hybrid" and "hybrid" not in _BACKENDS:
+        _load_hybrid_backend()
     if name not in _BACKENDS:
         raise ValueError(f"unknown BLS backend {name!r}; have {available_backends()}")
     _active_backend = _BACKENDS[name]

@@ -24,8 +24,13 @@ thread (host hashing and packing, pinned host buffers copied without
 blocking), then the dispatcher enqueues the four stages and a copy of the
 verdict to pinned host memory behind a CUDA event, with no host
 synchronisation in between; `VerifyHandle.result()` waits on that event.
-Both lanes, batch and urgent, share the device's one stream.
+Both lanes, batch and urgent, share the device's one stream. The
+dispatcher books every batch in the device ledger as the `bls` tenant; a
+resolved handle feeds the autotune profiler its bucket's time, and an
+autotune plan installed later retunes the dispatcher's depth.
 `verify_signature_sets` is `verify_signature_sets_async(...).result()`.
+`warm_stages` builds or loads the kernel library and runs one dummy
+verify at a bucket (autotune's startup warm-up).
 `aggregate_verify` (distinct messages) runs h2c, the pair assembly
 `aggregate_pairs` and the pairing stage. KZG (crypto/kzg.py) reaches the
 card through `g1_msm` (kernels.msm_varying), `g1_msm_fixed` (comb tables
@@ -36,9 +41,14 @@ and `pairing_product_is_one` (the pairing stage). On CPU tensors
 
 from __future__ import annotations
 
+import threading
+import time
+
 import numpy as np
 import torch
 
+from ...autotune import profiler
+from ...observability.trace import current_trace
 from ...utils import torchcfg
 from ..bls381 import curve as pc
 from ..bls381.constants import DST_POP
@@ -113,11 +123,16 @@ class VerifyHandle:
     On the card the verdict (ok and not bad) is copied into pinned host
     memory behind a CUDA event, all enqueued without waiting; `result()`
     waits on that event only, so it never waits for batches enqueued after
-    this one. `VerifyHandle()` is a batch that failed on the host."""
+    this one. `VerifyHandle()` is a batch that failed on the host. A
+    handle given its padding bucket and dispatch time feeds the autotune
+    profiler at its first resolve (`result()` is idempotent)."""
 
-    __slots__ = ("_verdict", "_event")
+    __slots__ = ("_verdict", "_event", "_bucket", "_t0", "_n_real")
 
-    def __init__(self, verdict=None):
+    def __init__(self, verdict=None, bucket=None, t0=None, n_real=0):
+        self._bucket = bucket
+        self._t0 = t0
+        self._n_real = n_real
         self._event = None
         if verdict is not None and verdict.device.type == "cuda":
             host = torch.empty((), dtype=torch.bool, pin_memory=True)
@@ -132,6 +147,9 @@ class VerifyHandle:
             return False
         if self._event is not None:
             self._event.synchronize()
+        if self._t0 is not None and self._bucket is not None:
+            dt, self._t0 = time.perf_counter() - self._t0, None
+            profiler.observe_dispatch(*self._bucket, dt, self._n_real)
         return bool(self._verdict)
 
 
@@ -143,16 +161,35 @@ class TorchBackend:
     def __init__(self, dst: bytes = DST_POP, device=None):
         self.dst = dst
         self.device = torchcfg.resolve_device(device)
-        self.dispatcher = pipeline.PipelinedDispatcher()
+        # the depth window and urgent lane; the `bls` tenant of the device
+        # ledger. Depth resolves env > autotune plan > default here, and a
+        # plan installed later re-resolves through the plan listener.
+        self.dispatcher = pipeline.PipelinedDispatcher(workload="bls")
+        try:
+            from ...autotune import runtime
+
+            runtime.add_plan_listener(self._on_plan_installed)
+        except Exception:
+            pass  # a broken autotune must never take down the backend
         # pubkey grids on the device, keyed by the identity of the key
         # objects and the set grouping (a validator registry re-verifies
-        # the same PublicKey objects every slot)
+        # the same PublicKey objects every slot); the lock lets two threads
+        # (the hybrid router's warm-up and its serving thread) marshal at
+        # once
         self._pk_cache: dict = {}
         self._pk_cache_order: list = []
+        self._pk_lock = threading.Lock()
         # comb tables of fixed point sets (the KZG setup's Lagrange points),
         # keyed by the identity of the point list, whose reference they keep
         self._fixed_msm_cache: dict = {}
         self._fixed_msm_order: list = []
+
+    def _on_plan_installed(self, _plan) -> None:
+        """An autotune plan was installed or cleared: re-resolve the
+        dispatcher's depth unless the constructor or the environment
+        pinned it."""
+        if self.dispatcher.depth_source in ("profile", "default"):
+            self.dispatcher.set_depth(*pipeline.resolve_depth())
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         """Host array -> int64 tensor on the device; to the card through a
@@ -167,24 +204,25 @@ class TorchBackend:
             tuple(len(s.signing_keys) for s in sets),
             tuple(id(pk) for s in sets for pk in s.signing_keys),
         )
-        hit = self._pk_cache.get(fp)
-        if hit is not None and hit[0].shape[:2] == (n, m):
-            return hit[:3]
-        pk_x = np.zeros((n, m, lb.NL), np.uint32)
-        pk_y = np.zeros((n, m, lb.NL), np.uint32)
-        pk_mask = np.zeros((n, m), np.uint32)
-        for i, s in enumerate(sets):
-            keys = s.signing_keys
-            pk_x[i, : len(keys)] = pack_ints_vec([pk.point[0] for pk in keys])
-            pk_y[i, : len(keys)] = pack_ints_vec([pk.point[1] for pk in keys])
-            pk_mask[i, : len(keys)] = 1
-        grid = (self._tensor(pk_x), self._tensor(pk_y), self._tensor(pk_mask))
-        # strong refs to the key objects keep their ids valid while cached
-        self._pk_cache[fp] = grid + ([pk for s in sets for pk in s.signing_keys],)
-        self._pk_cache_order.append(fp)
-        if len(self._pk_cache_order) > 8:
-            self._pk_cache.pop(self._pk_cache_order.pop(0), None)
-        return grid
+        with self._pk_lock:
+            hit = self._pk_cache.get(fp)
+            if hit is not None and hit[0].shape[:2] == (n, m):
+                return hit[:3]
+            pk_x = np.zeros((n, m, lb.NL), np.uint32)
+            pk_y = np.zeros((n, m, lb.NL), np.uint32)
+            pk_mask = np.zeros((n, m), np.uint32)
+            for i, s in enumerate(sets):
+                keys = s.signing_keys
+                pk_x[i, : len(keys)] = pack_ints_vec([pk.point[0] for pk in keys])
+                pk_y[i, : len(keys)] = pack_ints_vec([pk.point[1] for pk in keys])
+                pk_mask[i, : len(keys)] = 1
+            grid = (self._tensor(pk_x), self._tensor(pk_y), self._tensor(pk_mask))
+            # strong refs to the key objects keep their ids valid while cached
+            self._pk_cache[fp] = grid + ([pk for s in sets for pk in s.signing_keys],)
+            self._pk_cache_order.append(fp)
+            if len(self._pk_cache_order) > 8:
+                self._pk_cache.pop(self._pk_cache_order.pop(0), None)
+            return grid
 
     def marshal(self, sets, rands):
         """Host side of one batch: the prepare-stage inputs (pk_x, pk_y,
@@ -227,12 +265,17 @@ class TorchBackend:
         if not sets or any(s.signature.point is None for s in sets):
             return VerifyHandle()
         prepare_in, us = self.marshal(sets, rands)
+        bucket = tuple(prepare_in[0].shape[:2])
+        tr = current_trace()
+        if tr is not None:
+            tr.annotate(bucket=f"{bucket[0]}x{bucket[1]}", real_sets=len(sets))
 
         def dispatch():
+            t0 = time.perf_counter()
             ok, bad = self.run(prepare_in, us)
-            return VerifyHandle(ok & ~bad)
+            return VerifyHandle(ok & ~bad, bucket=bucket, t0=t0, n_real=len(sets))
 
-        return self.dispatcher.submit(dispatch, urgent=urgent)
+        return self.dispatcher.submit(dispatch, urgent=urgent, bucket=bucket)
 
     def verify_signature_sets(self, sets, rands) -> bool:
         return self.verify_signature_sets_async(sets, rands).result()
@@ -340,3 +383,23 @@ class TorchBackend:
             return True
         return bool(stage_pairing(*self.pairing_inputs(live)))
 
+
+def warm_stages(n_sets: int, n_pks: int) -> None:
+    """Warm one padding bucket on the card: build (on a cold build/
+    directory) or load the kernel library, then run one dummy verify at
+    the bucket (generator points, distinct messages: the verdict is false,
+    the four stages run) through the "torch" backend, which it loads if
+    it is not yet (and which raises without a card). The wall time is
+    recorded as the bucket's first-use cost in the autotune profiler;
+    raises on failure. The autotune warm-up walks the plan's buckets
+    through here on the "torch" backend."""
+    from ..bls import api
+    from ..bls.hybrid import _dummy_sets
+
+    t0 = time.perf_counter()
+    backend = api._BACKENDS.get("torch") or api._load_torch_backend()
+    if backend.device.type == "cuda":
+        kernels.library()
+    sets = _dummy_sets(n_sets, n_pks)
+    backend.verify_signature_sets(sets, [1] * len(sets))
+    profiler.observe_compile(*padding_bucket(n_sets, n_pks), time.perf_counter() - t0)

@@ -1,0 +1,36 @@
+"""Observability of the port: span tracing, the flight recorder, the SLO
+accountant and the device ledger (copies of the JAX package's modules of
+the same names).
+
+  - `trace`: a lightweight span tracer. A Trace carries one work unit
+    through the pipeline; completed traces land in a bounded ring and
+    feed per-stage Prometheus histograms, and the ring exports as Chrome
+    trace-event (Perfetto) JSON.
+  - `flight_recorder`: the always-on black box — a bounded ring of
+    structured events (breaker transitions, route flips, deadline misses,
+    WARN+ log records) with incident triggers that dump diagnosis
+    snapshots and render as instant markers in the Perfetto export.
+  - `slo`: the slot-level service-level accountant — one SlotReport per
+    slot boundary, rolling 5-slot and 32-slot windows with burn rate, the
+    `slo_*` families and the health degraded signal.
+  - `device_ledger`: who holds the card and who waits — per-tenant busy
+    time of the `bls`, `tree_hash` and `epoch` workloads, admit waits,
+    cross-tenant contention, and exact per-chip conservation.
+
+Always-on by design: recording a trace is appending a few floats to a
+deque. Nothing here initializes a device.
+"""
+
+from .trace import (  # noqa: F401
+    PIPELINE_STAGES,
+    TRACER,
+    Trace,
+    Tracer,
+    chrome_trace_events,
+    current_trace,
+    set_current_trace,
+)
+from . import device_ledger, flight_recorder, slo  # noqa: F401  (registers their families + the log sink)
+from .device_ledger import LEDGER  # noqa: F401
+from .flight_recorder import RECORDER  # noqa: F401
+from .slo import ACCOUNTANT  # noqa: F401

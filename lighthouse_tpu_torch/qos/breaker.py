@@ -12,12 +12,13 @@ the circuit or re-opens it for another cooldown.
 The state is exported through a caller-supplied gauge (the hybrid router
 wires `bls_device_circuit_state`: 0=closed, 1=open, 2=half_open) and every
 transition lands in `qos_circuit_transitions_total{breaker,to}`, so the
-closed→open→half_open→closed cycle is scrape-observable. The time source
-is injectable for deterministic tests.
+closed→open→half_open→closed cycle is scrape-observable. Every transition
+is also handed to the flight recorder (observability/flight_recorder.py)
+AFTER the breaker lock is released — a transition to OPEN is an incident
+trigger that may write a dump, and that IO must never block concurrent
+`allow()` callers. The time source is injectable for deterministic tests.
 
-The port's copy of lighthouse_tpu/qos/breaker.py without the reference's
-hand-off of each transition to the flight recorder: the port has no
-observability layer yet, so the hook has nothing to call.
+The port's copy of lighthouse_tpu/qos/breaker.py.
 """
 
 from __future__ import annotations
@@ -76,6 +77,11 @@ class CircuitBreaker:
         # life of a degraded node must not grow memory (the durable count
         # lives in qos_circuit_transitions_total)
         self.transitions: deque = deque([CLOSED], maxlen=64)
+        # transitions awaiting flight-recorder notification (lock released);
+        # _notify_lock serializes delivery so racing flushers cannot
+        # reorder transitions (stale breaker_states would pin health at 206)
+        self._pending_notify: list = []
+        self._notify_lock = threading.Lock()
         if self._gauge is not None:
             self._gauge.set(STATE_VALUES[CLOSED])
         if self.workload is not None:
@@ -95,6 +101,35 @@ class CircuitBreaker:
             CIRCUIT_STATE.labels(self.workload).set(STATE_VALUES[to])
         self._log.info("circuit transition", to=to,
                        failures=self._failures)
+        # flight-recorder notification is DEFERRED: a transition to OPEN
+        # triggers an incident dump, and that must run after the caller
+        # releases self._lock (see module docstring)
+        self._pending_notify.append((to, self._failures))
+
+    def _flush_notify(self) -> None:
+        """Hand collected transitions to the flight recorder; call with
+        self._lock RELEASED. Items are popped under self._lock (two racing
+        flushers must not IndexError on the shared list) and delivered
+        under _notify_lock (oldest-first, never reordered). Lock order is
+        strictly _notify_lock -> _lock; no path holds _lock while taking
+        _notify_lock. The unguarded empty check keeps the common case —
+        allow()/record_success() with nothing pending — from ever waiting
+        behind a flusher that is busy writing an incident dump (a missed
+        item here is delivered by the flusher that queued it)."""
+        if not self._pending_notify:
+            return
+        with self._notify_lock:
+            while True:
+                with self._lock:
+                    if not self._pending_notify:
+                        return
+                    to, failures = self._pending_notify.pop(0)
+                try:
+                    from ..observability.flight_recorder import RECORDER
+
+                    RECORDER.note_breaker(self.name, to, failures=failures)
+                except Exception:  # the black box must never break the breaker
+                    pass
 
     # ------------------------------------------------------------- surface
 
@@ -106,44 +141,53 @@ class CircuitBreaker:
         """May a request use the protected path right now? In OPEN past the
         cooldown this transitions to HALF_OPEN and admits exactly one probe
         (further allow() calls refuse until the probe's outcome lands)."""
-        with self._lock:
-            if self._state == CLOSED:
-                return True
-            if self._state == OPEN:
-                if self._time() - self._opened_at < self.reset_timeout:
+        try:
+            with self._lock:
+                if self._state == CLOSED:
+                    return True
+                if self._state == OPEN:
+                    if self._time() - self._opened_at < self.reset_timeout:
+                        return False
+                    self._transition_locked(HALF_OPEN)
+                    self._probe_inflight = True
+                    return True
+                # HALF_OPEN: one probe at a time
+                if self._probe_inflight:
                     return False
-                self._transition_locked(HALF_OPEN)
                 self._probe_inflight = True
                 return True
-            # HALF_OPEN: one probe at a time
-            if self._probe_inflight:
-                return False
-            self._probe_inflight = True
-            return True
+        finally:
+            self._flush_notify()
 
     def record_success(self) -> None:
-        with self._lock:
-            if self._state == OPEN:
-                # a straggler dispatched BEFORE the trip completed while
-                # open: it is not evidence of recovery (the pipelined
-                # flap: stall -> 3 failures -> open -> pre-trip handle
-                # lands fine -> circuit must stay open until the cooldown
-                # + half-open probe, or the refusal guarantee never holds)
-                return
-            self._failures = 0
-            self._probe_inflight = False
-            if self._state != CLOSED:
-                self._transition_locked(CLOSED)
+        try:
+            with self._lock:
+                if self._state == OPEN:
+                    # a straggler dispatched BEFORE the trip completed while
+                    # open: it is not evidence of recovery (the pipelined
+                    # flap: stall -> 3 failures -> open -> pre-trip handle
+                    # lands fine -> circuit must stay open until the cooldown
+                    # + half-open probe, or the refusal guarantee never holds)
+                    return
+                self._failures = 0
+                self._probe_inflight = False
+                if self._state != CLOSED:
+                    self._transition_locked(CLOSED)
+        finally:
+            self._flush_notify()
 
     def record_failure(self) -> None:
-        with self._lock:
-            self._probe_inflight = False
-            if self._state == HALF_OPEN:
-                # failed probe: straight back to open, fresh cooldown
-                self._opened_at = self._time()
-                self._transition_locked(OPEN)
-                return
-            self._failures += 1
-            if self._state == CLOSED and self._failures >= self.failure_threshold:
-                self._opened_at = self._time()
-                self._transition_locked(OPEN)
+        try:
+            with self._lock:
+                self._probe_inflight = False
+                if self._state == HALF_OPEN:
+                    # failed probe: straight back to open, fresh cooldown
+                    self._opened_at = self._time()
+                    self._transition_locked(OPEN)
+                    return
+                self._failures += 1
+                if self._state == CLOSED and self._failures >= self.failure_threshold:
+                    self._opened_at = self._time()
+                    self._transition_locked(OPEN)
+        finally:
+            self._flush_notify()

@@ -70,11 +70,13 @@ def device() -> torch.device:
 
 
 def _get_dispatcher():
+    """The engine's PipelinedDispatcher, the device ledger's `tree_hash`
+    tenant (lazy: it resolves its depth at construction)."""
     global _dispatcher
     if _dispatcher is None:
         from ..crypto.torchbls.pipeline import PipelinedDispatcher
 
-        _dispatcher = PipelinedDispatcher()
+        _dispatcher = PipelinedDispatcher(workload="tree_hash")
     return _dispatcher
 
 

@@ -262,13 +262,19 @@ def _device_altair_deltas(n, eff, part_masks, eligible_mask, target_part,
     failure is counted and recorded, then raised under backend "device"
     and answered None under "hybrid" (the caller's host-numpy lane
     serves). Only a
-    DEVICE-served computation observes torchhash_device_seconds."""
+    DEVICE-served computation observes torchhash_device_seconds. The
+    epoch workload has no dispatcher: it books its device time in the
+    device ledger directly, as the `epoch` tenant."""
     import time
 
+    from ..observability.device_ledger import LEDGER
+    from ..ssz.core import next_pow2
     from . import engine, kernels
 
     t0 = time.perf_counter()
+    interval = LEDGER.open("epoch", lane="batch", bucket=next_pow2(n))
     try:
+        interval.start()
         rew, pen, inact = kernels.epoch_deltas(
             *kernel_inputs(engine.device(), eff, part_masks, eligible_mask,
                            target_part, scores),
@@ -278,10 +284,12 @@ def _device_altair_deltas(n, eff, part_masks, eligible_mask, target_part,
         engine._DEVICE_SECONDS.labels("epoch_deltas").observe(
             time.perf_counter() - t0
         )
+        interval.close("ok")
         _DEVICE_TOTAL.labels("ok").inc()
         _router_record(True)
         return list(rew), list(pen), inact
     except Exception as e:
+        interval.close("error")
         _DEVICE_TOTAL.labels("error").inc()
         _router_record(False)
         from .router import hash_backend

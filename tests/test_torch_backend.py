@@ -225,6 +225,14 @@ def test_import_and_cpu_verify_load_no_jax():
         "assert router.route_totals().get('device/ok') and not router.route_totals().get('host/device_error')\n"
         "ep.process_epoch(st, spec, types, spec.fork_name_at_slot(st.slot))\n"
         "assert epoch_vectors.epoch_totals() == {'ok': 1.0}\n"
+        "from lighthouse_tpu_torch import autotune, observability\n"
+        "assert 'hybrid' in bls.available_backends()\n"
+        "h = bls.set_backend('hybrid')\n"
+        "assert bls.get_backend() is h and h.name == 'hybrid'\n"
+        "assert bls.verify(pk, msg, sig)\n"
+        "assert __import__('torch').cuda.is_available() or h._state == 'down'\n"
+        "assert observability.LEDGER.workloads() == ['bls', 'epoch', 'tree_hash']\n"
+        "assert autotune.runtime.active_plan() is None\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'lighthouse_tpu.'))"
         " or m == 'lighthouse_tpu']\n"
         "assert not bad, bad\n"
