@@ -98,13 +98,27 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
      tree_hash and epoch tenants; bls, tree_hash and epoch each closed an
      interval, busy + contended + idle equals the ledger's window on the
      one chip (relative 1e-6); the snapshot per workload printed;
-  9. each kernel's device time from torch.profiler at the three buckets
+  9. calibrate: `python -m lighthouse_tpu_torch autotune calibrate` as
+     cli.main on the card (6 reps, bench_fixtures.npz: buckets (4, 128),
+     (16, 128), (64, 128), (512, 128) and (4, 512), the MSM widths, the
+     16384-leaf ladder), the launch counts and the autotune profiler reset
+     before it: the profile's key, buckets, samples (reps + 1 each, none
+     counted twice), stage programs, host reference, MSM width (every
+     width's sum equal to the pure-Python sum) and ladder root (hashlib's)
+     checked, the plan installed and read by msm_window() and the ladder's
+     warm-up, every kernel of CALIBRATE_PATH launched; then the path
+     kernels against their plain versions at (4, 128);
+ 10. attribution: observability.device.profile_stages(64, 128) and one
+     gossip verify under device.attributed(): each stage's CUDA-event ms
+     and its share of its bound, none above 1;
+ 11. each kernel's device time from torch.profiler at the four buckets
      (prepare's three launches apart), beside phase 3's CUDA-event times,
      which take in the host's time where a wrapper's Python outlasts its
-     kernel; the MSM kernels' at the KZG path's full width; fq_mont_mul's
-     at each size of the field phase; the tree-hash and epoch kernels' at
-     their paths' width; last, the card's busy share of one KZG batch
-     verify.
+     kernel, and the gossip bucket's sums per stage beside the attribution
+     phase's event ms; the MSM kernels' at the KZG path's full width;
+     fq_mont_mul's at each size of the field phase; the tree-hash and epoch
+     kernels' at their paths' width; last, the card's busy share of one
+     KZG batch verify.
 The last two lines are the kernel table and the device line. To time
 another checkout's kernels with this script, copy it into that checkout's
 root and run it there.
@@ -118,13 +132,21 @@ import subprocess
 import sys
 import time
 
+try:   # outside a checkout main() says so and exits 2
+    from lighthouse_tpu_torch.crypto.torchbls.costs import (
+        ELEMENT_BYTES, HBM_BYTES_PER_S, IMAD_PER_FQ_MUL, INT32_PER_S, bound_ms, bytes_needed,
+        fq_products_easy_part, fq_products_h2c, fq_products_hard_part, fq_products_miller,
+        fq_products_miller_batch, fq_products_pairs, fq_products_prepare, int_ops_inverse, leaves,
+    )
+except ImportError:
+    pass
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURES = os.path.join(ROOT, "bench_fixtures.npz")
 N_SETS, N_PKS = 64, 128          # gossip batch cap x target committee size
 FIELD_N = 1 << 20
 FIELD_SIZES = (130, 1 << 14, 1 << 20, 1 << 22)    # a * b sizes of the field sweep
 INTERCHANGE_BYTES = 192           # an Fq element as the port passes it: 24 int64 limbs
-ELEMENT_BYTES = 48                # the 381 bits it holds, as 12 32-bit words
 LATENCY_ITERS = 4096              # dependent products per chain in product_latency
 VERIFY_REPEATS = 3                # verifies of the valid batch; the median is reported
 PIPELINED = 8                     # submissions of the pipelined phase
@@ -153,16 +175,12 @@ HYBRID_EXTRA = ("fq_mont_mul", "msm_fixed")   # AggregateVerify's and KZG's kern
 HYBRID_STATE_N = 1 << 12          # the hybrid phase's ledger step: above the hash and epoch thresholds
 LADDER_WIDTHS = (1, 2, 63, 64, 65, 1023, 1024, 1025)
 MSG_LENGTHS, MSG_N = (0, 55, 56, 63, 64, 65, 119, 128), 1 << 14
+# the calibrator's default reps, the buckets of its sweep over
+# bench_fixtures.npz and the kernels its path launches
+CALIBRATE_REPS = 6
+CALIBRATE_BUCKETS = ((4, 128), (16, 128), (64, 128), (512, 128), (4, 512))
+CALIBRATE_PATH = MAIN_PATH + ("msm_varying", "sha256_ladder")
 
-# H100 SXM peaks (NVIDIA data sheet): HBM 3.35 TB/s. 32-bit integer
-# instructions: 64 per clock per SM for multiply-add (IMAD), add, shift,
-# compare, select and logic alike (CUDA C++ Programming Guide, throughput
-# table, compute capability 9.0) x 132 SMs x 1.98 GHz boost = 16.7 T/s.
-HBM_BYTES_PER_S = 3.35e12
-INT32_PER_S = 64 * 132 * 1.98e9
-# One 381-bit Montgomery product, 12 x 32-bit limbs (CIOS): 2*12*12 + 12
-# 32x32->64-bit multiply-adds, two IMAD issues each (low and high word).
-IMAD_PER_FQ_MUL = 2 * (2 * 12 * 12 + 12)
 # 32-bit instructions of one SHA-256 compression as csrc/sha256.cu writes
 # it, at Hopper's three-input LOP3 and IADD3: a round is 14 (Sigma1 and
 # Sigma0: 3 funnel shifts and a LOP3 each; ch and maj: a LOP3 each; t1: 2
@@ -242,12 +260,6 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def leaves(x) -> list:
-    if isinstance(x, (tuple, list)):
-        return [t for e in x for t in leaves(e)]
-    return [x]
-
-
 def compare(kernel_out, plain_out) -> tuple[bool, int]:
     """(torch.equal on every output, max |kernel - plain| over them)."""
     import torch
@@ -259,143 +271,6 @@ def compare(kernel_out, plain_out) -> tuple[bool, int]:
     err = max((int((k.long() - p.long()).abs().max()) if k.numel() else 0
                for k, p in zip(ks, ps)), default=0)
     return equal, err
-
-
-# ------------------------------------------------- Fq products per kernel
-# Counts of 381-bit Montgomery products each kernel's function needs on this
-# run's data (the Miller loop's: the least of two forms, below; the Miller
-# kernels' own counts stand beside them in the kernel rows): G1 double 7,
-# G1 add 16; G2 double 16, G2 add 44 (an Fq2 product is 3, an Fq2 square
-# 2); Fq12 product 54, cyclotomic square 18, Fq12 square 36; an Fq inversion
-# one product (by R^3) beside its binary GCD, which is counted apart as
-# 32-bit integer instructions (int_ops_inverse). An addition with an
-# identity operand does no product.
-
-
-def _popcount(x: int) -> int:
-    return bin(x).count("1")
-
-
-def fq_products_prepare(pk_mask, z_bits, set_mask) -> int:
-    n, m = pk_mask.shape
-    keys = pk_mask.sum(dim=1).tolist()
-    live = set_mask.tolist()
-    bits = z_bits.sum(dim=1).tolist()
-    total = 2 * n * m + 4 * n                         # Montgomery conversions
-    total += 16 * sum(max(k - 1, 0) for k in keys)    # pubkey trees
-    for s in range(n):
-        adds = max(int(bits[s]) - 1, 0)               # the first add is from identity
-        total += z_bits.shape[1] * 7 + (adds * 16 if keys[s] else 0)
-        total += z_bits.shape[1] * 16 + (adds * 44 if live[s] else 0)
-    total += 44 * max(int(sum(live)) - 1, 0)          # signature tree
-    return total
-
-
-# fq.cuh's fp_inv (a binary GCD) in 32-bit integer instructions, counted
-# from its source loop by loop (a 64-bit operation is two): INV_BATCHES
-# batches, each of INV_STEPS divsteps of 24 (the parity 1, a 64-bit
-# compare 2, the swap flag 1, the swap's selects of A and B 4 and of the
-# four factors 4, a masked 64-bit subtraction 4 and shift 2, the factor
-# updates 6) and of 878 more: the bit length over 12 words 50, two 62-bit
-# approximations 38 each, two exact updates of a and b 156 each (per
-# factor its magnitude 2, a product of 12 words by it 25 and a 13-word
-# conditional negation 26; a 13-word sum 13, a 12-word shift 12, the sign
-# 1, a 12-word conditional negation 24), the factors' signs 8, and two
-# updates of u and v mod p 216 each (two negations mod p 37 each, selects
-# 24, magnitudes 4, three products by a factor 25 each, the quotient 2, a
-# 12-word shift 12, a conditional subtraction 25). Its last product by R^3
-# is an Fq product.
-INV_DIVSTEP_OPS = 24
-INV_BATCH_OPS = 50 + 2 * 38 + 2 * 156 + 8 + 2 * 216
-
-
-def int_ops_inverse() -> int:
-    from lighthouse_tpu_torch.crypto.torchbls import kernels as K
-
-    return K.INV_BATCHES * (K.INV_STEPS * INV_DIVSTEP_OPS + INV_BATCH_OPS)
-
-
-def fq_products_pairs(n: int) -> int:
-    """Per Z lane an Fq2 inversion (the norm's two squares, the inversion's
-    product by R^3, two products by the norm's inverse; its GCD is
-    int_ops_inverse) and Z^-2, Z^-3 (2 + 3); the G1 lanes' X and Y 2, the
-    other lanes' 6."""
-    return (2 * n + 1) * (4 + 1 + 2 + 3) + n * 2 + (n + 1) * 6
-
-
-def fq_products_miller_batch(mask) -> int:
-    """miller_loop_batch's least work: per unmasked pair 63 Fq12 squarings
-    (36), doubling steps (31) and sparse 014 line products (13 Fq2 products,
-    39), and the addition steps (40) with theirs on the other 1-bits of |x|;
-    the first squaring and line product, of f = 1, are free. A masked pair
-    gives 1 and costs nothing."""
-    from lighthouse_tpu_torch.crypto.bls381.constants import X_ABS
-
-    per_pair = 63 * (36 + 31 + 39) + (_popcount(X_ABS) - 1) * (40 + 39) - 36 - 39
-    return int((mask != 0).sum()) * per_pair
-
-
-def fq_products_miller(mask) -> int:
-    """miller_loop_product's least work over this run's unmasked pairs L:
-    the fewer of one shared f (62 squarings past the first, of f = 1; each
-    pair's 63 doubling and 5 addition steps; every line multiplied into f by
-    the sparse 014 product, the first one into f = 1 free) and the per-pair
-    values of miller_loop_batch with a tree of L - 1 dense Fq12 products."""
-    from lighthouse_tpu_torch.crypto.bls381.constants import X_ABS
-
-    live = int((mask != 0).sum())
-    if not live:
-        return 0
-    adds = _popcount(X_ABS) - 1
-    shared = 62 * 36 + live * (63 * (31 + 39) + adds * (40 + 39)) - 39
-    return min(shared, fq_products_miller_batch(mask) + (live - 1) * 54)
-
-
-def fq_products_hard_part() -> int:
-    """pairing_ops.final_exp_hard_part's least work: five |x| chains (63
-    cyclotomic squarings, 18, and a product, 54, on each of the other
-    1-bits of |x|), seven Fq12 products, the square of t (36) and the two
-    Frobenius maps (per Fq2 coefficient none for 1, two for one in Fq or in
-    u Fq, three otherwise)."""
-    from lighthouse_tpu_torch.crypto.bls381.constants import P, X_ABS
-    from lighthouse_tpu_torch.crypto.torchbls import limbs as lb
-    from lighthouse_tpu_torch.crypto.torchbls import tower as tw
-
-    one, frob = lb.R_MONT % P, 0
-    for k in (1, 2):
-        c = [lb.unpack(x) for x in tw.FROB12_COEFF[k].reshape(12, lb.NL)]
-        frob += sum(0 if (re, im) == (one, 0) else 2 if 0 in (re, im) else 3
-                    for re, im in zip(c[0::2], c[1::2]))
-    exp = 63 * 18 + (_popcount(X_ABS) - 1) * 54
-    return 5 * exp + 7 * 54 + 36 + frob
-
-
-def fq_products_h2c(n: int) -> int:
-    """h2c.cu per message: per u-value the Montgomery conversion (2), SWU
-    before sqrt_ratio (29), sqrt_ratio (91 + the a^E window chain: a
-    14-product table, 4 squarings per later digit, a product per nonzero
-    one), after it (12), two sgn0 (4) and the isogeny (84); then the add
-    (44) and the cofactor clearing (two |x| multiplications of 64
-    doublings and 5 adds past the first, three psi maps, a doubling, five
-    adds)."""
-    from lighthouse_tpu_torch.crypto.bls381.constants import X_ABS
-    from lighthouse_tpu_torch.crypto.torchbls import h2c_ops as h2
-    from lighthouse_tpu_torch.crypto.torchbls import limbs as lb
-
-    digits = lb.window_digits(h2._E, 4)
-    pow_e = 14 * 3 + (len(digits) - 1) * 4 * 2 + sum(1 for d in digits[1:] if d) * 3
-    per_u = 2 + 29 + 91 + pow_e + 12 + 4 + 84
-    xmul = X_ABS.bit_length() * 16 + (_popcount(X_ABS) - 1) * 44
-    clear = 2 * xmul + 3 * 6 + 16 + 5 * 44
-    return n * (2 * per_u + 44 + clear)
-
-
-def fq_products_easy_part() -> int:
-    """easy_part.cu: the Fq12 inversion (four Fq6 products; the Fq6
-    adjugate's three Fq2 squares and nine Fq2 products; one Fq2 inversion,
-    its Fq inversion one product beside its GCD, int_ops_inverse), two Fq12
-    products and a Frobenius (six Fq2 products)."""
-    return 4 * 18 + (3 * 2 + 9 * 3) + (4 + 1) + 2 * 54 + 6 * 3
 
 
 # The MSM kernels' work on this run's data: a doubling 7 Fq products, a
@@ -555,32 +430,6 @@ def field_floors(n: int, operands: int) -> dict:
     return {"interchange_ms": moved * INTERCHANGE_BYTES / HBM_BYTES_PER_S * 1e3,
             "bytes48_ms": moved * ELEMENT_BYTES / HBM_BYTES_PER_S * 1e3,
             "imad_ms": n * IMAD_PER_FQ_MUL / INT32_PER_S * 1e3}
-
-
-def bound_ms(fq_products: int, bytes_moved: int, int_ops: int = 0) -> tuple[float, str]:
-    """The larger of the bytes over HBM's rate and the integer instructions
-    (each Fq product's IMADs, and int_ops more) over the integer rate."""
-    ops_ms = (fq_products * IMAD_PER_FQ_MUL + int_ops) / INT32_PER_S * 1e3
-    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
-
-
-def bytes_needed(x) -> int:
-    """Bytes a function must move for x: 48 per 381-bit Fq element (an
-    int64 tensor whose last axis holds the 24 limbs; the int64 16-bit-limb
-    layout is the port's choice, not the work's) and one bit per 0/1 flag
-    (every other tensor of these stages)."""
-    import torch
-
-    from lighthouse_tpu_torch.crypto.torchbls.limbs import NL
-
-    total = 0
-    for t in leaves(x):
-        if t.dtype == torch.int64 and t.shape[-1:] == (NL,):
-            total += t.numel() // NL * 48
-        else:
-            total += (t.numel() + 7) // 8
-    return total
 
 
 # ------------------------------------------------------------ product latency
@@ -1624,6 +1473,186 @@ def hybrid_phase(launches, smi, att, tampered, single, rands, agg) -> None:
         raise SystemExit(f"the device ledger failed its checks: {ledger_checks}")
 
 
+def calibrate_phase(launches, smi, att, rands, check_kernels) -> tuple[dict, dict]:
+    """The autotune calibrator through the port's CLI on the card:
+    `python -m lighthouse_tpu_torch autotune calibrate --out <tmp>` as
+    cli.main, at its default reps on the full bench_fixtures.npz, with the
+    autotune profiler and the launch counts reset just before it. Checks:
+    exit 0; the profile's key (platform gpu, this card's name, revision
+    t1); exactly the sweep's buckets, each with CALIBRATE_REPS + 1 samples
+    (the attribution pass is each bucket's first dispatch: no verify counted
+    twice) and the four stages' programs; the host reference; the MSM
+    width, every width's sum equal to the pure-Python sum (the "python"
+    backend's, kzg._g1_lincomb's host lane) of the sweep's 32 points and
+    scalars; the ladder's bucket and root (hashlib's over the same zero
+    leaves); the plan installs, msm_window() gives its width and
+    start_warmup() warms its ladders; every kernel of CALIBRATE_PATH
+    launched; the 512 fixture sets, the widest bucket, rejected with one
+    message byte flipped; then the six path kernels against their plain
+    versions at (4, 128), the calibration's own workload there. Then
+    runtime.clear() and the earlier BLS backend back. Returns the kernel
+    rows and the arguments of that check."""
+    import random
+    import tempfile
+
+    import torch
+
+    from lighthouse_tpu_torch import cli
+    from lighthouse_tpu_torch.autotune import calibrate, profile, profiler, runtime
+    from lighthouse_tpu_torch.crypto import bls, kzg
+    from lighthouse_tpu_torch.crypto.torchbls import msm
+    from lighthouse_tpu_torch.ssz.core import ZERO_HASHES
+    from lighthouse_tpu_torch.torchhash import engine, router
+    from lighthouse_tpu_torch.utils import fixtures
+
+    previous = bls.get_backend().name
+    profiler.reset()
+    torch.cuda.synchronize()
+    reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "profile.json")
+        t0 = time.perf_counter()
+        rc = cli.main(["autotune", "calibrate", "--out", out, "--fixtures", FIXTURES])
+        seconds = time.perf_counter() - t0
+        launches["calibrate"] = {name: k[0].launches for name, k in kernel_registry().items()}
+        prof = profile.load(out)
+    sweep = calibrate.last_run.get("msm_sweep", {})
+
+    # the widest bucket, (512, 128), new to the card: a flipped byte fails
+    wide = fixtures.load_groups(FIXTURES)["att"]
+    s7 = wide[7]
+    wide[7] = bls.SignatureSet(s7.signature, s7.signing_keys, bytes([s7.message[0] ^ 1]) + s7.message[1:])
+    t1 = time.perf_counter()
+    wide_tampered = bls.verify_signature_sets(wide, rands)
+    wide_s = time.perf_counter() - t1
+
+    # the sweep's MSM on the host: its 32 points and scalars
+    pts = fixtures.load_kzg(FIXTURES)["g1_lagrange"][:calibrate.MSM_SWEEP_POINTS]
+    rng = random.Random(0xA08)
+    scalars = [rng.getrandbits(255) for _ in pts]
+    bls.set_backend("python")
+    t1 = time.perf_counter()
+    host_sum = kzg._g1_lincomb(pts, scalars)
+    host_msm_s = time.perf_counter() - t1
+
+    # the plan: installed, read by msm_window() and the ladder's warm-up
+    warmed, real_warm = [], engine.warm_tree_bucket
+    engine.warm_tree_bucket = lambda n: warmed.append(n) or real_warm(n)
+    try:
+        plan = runtime.install_profile(prof)
+        plan_window = msm.msm_window()
+        router.start_warmup().join(PROBE_WAIT_S)
+    finally:
+        engine.warm_tree_bucket = real_warm
+        runtime.clear()
+        bls.set_backend(previous)
+    reps = CALIBRATE_REPS
+    buckets = sorted(prof.buckets)
+    checks = {
+        "exit_0": rc == 0,
+        "key": prof.key.get("platform") == "gpu"
+        and prof.key.get("device_kind") == torch.cuda.get_device_name(0)
+        and prof.key.get("backend_revision") == profile.BACKEND_REVISION == "t1",
+        "buckets": buckets == sorted(CALIBRATE_BUCKETS),
+        "samples": all(b.samples == reps + 1 for b in prof.buckets.values()),
+        "programs": all(sorted(b.programs or {}) == ["h2c", "pairing", "pairs", "prepare"]
+                        for b in prof.buckets.values()),
+        "host": (prof.host or {}).get("single_set_ms", 0) > 0,
+        "msm_window": prof.msm_window in (0, 2, 4, 5, 6),
+        "msm_sums": bool(sweep) and sweep["sum"] == host_sum and host_sum is not None,
+        "tree_hash": prof.tree_hash_buckets == (16384,)
+        and calibrate.last_run.get("tree_hash_roots", {}).get(16384) == ZERO_HASHES[14].hex(),
+        "plan": plan is not None and plan_window == prof.msm_window
+        and warmed == [16384] == list(plan.tree_hash_warmup),
+        "kernels_launched": all(launches["calibrate"][k] > 0 for k in CALIBRATE_PATH),
+        "wide_tampered_rejected": wide_tampered is False and len(wide) == 512,
+    }
+    emit({"phase": "calibrate", "device": smi, "seconds": seconds, "exit_code": rc,
+          "key": prof.key, "reps": reps,
+          "buckets": {f"{n}x{m}": {"samples": b.samples, "compile_secs": b.compile_secs,
+                                   "p50_ms": b.p50_ms, "p99_ms": b.p99_ms,
+                                   "sets_per_sec": b.sets_per_sec,
+                                   "programs": b.programs}
+                      for (n, m), b in sorted(prof.buckets.items())},
+          "host": prof.host, "msm_window": prof.msm_window,
+          "msm_secs_by_window": sweep.get("secs_by_window"), "host_msm_seconds": host_msm_s,
+          "tree_hash_buckets": prof.tree_hash_buckets, "wide_tampered_seconds": wide_s, "plan": {
+              "max_attestation_batch": plan.max_attestation_batch if plan else None,
+              "p99_budget_ms": plan.p99_budget_ms if plan else None,
+              "urgent_max_sets": plan.urgent_max_sets if plan else None,
+              "warmup_buckets": list(plan.warmup_buckets) if plan else None,
+              "msm_window": plan.msm_window if plan else None},
+          "launches": launches["calibrate"], "checks": checks})
+    if not all(checks.values()):
+        raise SystemExit(f"the calibrate phase failed its checks: {checks}")
+    rows, _own, args = check_kernels("calibrate", att[:1])
+    return rows, args
+
+
+def stage_series() -> dict:
+    """torchbls_stage_device_seconds by (stage, n_sets, n_pks): (count,
+    total seconds)."""
+    from lighthouse_tpu_torch.observability import device as obsdev
+
+    return {key: (c.n, c.total) for key, c in obsdev.STAGE_DEVICE_SECONDS.children()}
+
+
+def attribution_phase(smi, att, rands) -> dict:
+    """Per-stage device attribution on the card: profile_stages at the
+    gossip bucket (3 reps on random interchange limbs), then one gossip
+    verify through bls.verify_signature_sets under device.attributed();
+    each stage's CUDA-event ms and its share of its bound (perf.roofline on
+    the work counted on that run's own inputs). Fails if a share exceeds 1
+    (a miscount) or the verify fails. Returns the verify's event ms per
+    stage."""
+    import torch
+
+    from lighthouse_tpu_torch.crypto import bls
+    from lighthouse_tpu_torch.observability import device as obsdev
+    from lighthouse_tpu_torch.observability import perf
+
+    kind = torch.cuda.get_device_name(0)
+    t0 = time.perf_counter()
+    # each run's shares against the work of its own inputs: the programs
+    # the calibrator counted at this bucket had coefficients z = 1
+    perf.reset_programs()
+    standalone = obsdev.profile_stages(N_SETS, N_PKS, reps=3)
+    before = stage_series()
+    perf.reset_programs()
+    prev = perf.set_analytics(True)
+    try:
+        with obsdev.attributed():
+            ok = bls.verify_signature_sets(att, rands)
+    finally:
+        perf.set_analytics(prev)
+    after = stage_series()
+    seconds = time.perf_counter() - t0
+    verify = {}
+    for stage in obsdev.STAGES:
+        key = (stage, str(N_SETS), str(N_PKS))
+        n0, s0 = before.get(key, (0, 0.0))
+        n1, s1 = after.get(key, (0, 0.0))
+        secs = (s1 - s0) / (n1 - n0) if n1 > n0 else None
+        rl = perf.roofline(perf.program_stats(stage, (N_SETS, N_PKS)) or {}, secs, kind)
+        verify[stage] = {"event_ms": secs * 1e3 if secs else None,
+                         "bound_ms": (rl or {}).get("bound_ms"),
+                         "bound_share": (rl or {}).get("bound_share")}
+    shares = [v["bound_share"] for v in verify.values()]
+    shares += [s.get("roofline", {}).get("bound_share") for s in standalone["stages"].values()]
+    checks = {
+        "verified": ok is True,
+        "every_stage_timed": all(v["event_ms"] for v in verify.values())
+        and sorted(standalone["stages"]) == sorted(obsdev.STAGES),
+        "shares_at_most_1": all(s is not None and 0 < s <= 1.0 for s in shares),
+    }
+    emit({"phase": "attribution", "device": smi, "bucket": [N_SETS, N_PKS],
+          "seconds": seconds, "profile_stages": standalone, "gossip_verify": verify,
+          "checks": checks})
+    if not all(checks.values()):
+        raise SystemExit(f"the attribution phase failed its checks: {checks}")
+    return verify
+
+
 # ------------------------------------------------------------ phases
 
 
@@ -2013,6 +2042,12 @@ def main() -> int:
     # the hybrid router over the same card, and the device ledger it books
     hybrid_phase(launches, smi, att, tampered, single, rands, (agg_pks, msgs, agg_sig))
 
+    # the autotune calibrator through the CLI, then per-stage attribution;
+    # before the profiler phases, which disturb what follows them
+    checks["calibrate"], kernel_args["calibrate"] = calibrate_phase(launches, smi, att, rands,
+                                                                    check_kernels)
+    attributed_ms = attribution_phase(smi, att, rands)
+
     # the kernel line: the gossip path's numbers (the MSM kernels': the KZG
     # path's; the tree-hash and epoch kernels': their paths'), then each
     # path's launches and the sync and urgent buckets' checks
@@ -2029,7 +2064,8 @@ def main() -> int:
             "equal": g["equal"], "launches_by_path": {path: launches[path][name] for path in launches},
         }
         if name in checks["sync"]:
-            table[name].update(sync=checks["sync"][name], urgent=checks["urgent"][name])
+            table[name].update(sync=checks["sync"][name], urgent=checks["urgent"][name],
+                               calibrate=checks["calibrate"][name])
 
     # each kernel's device ms from the profiler (prepare's three launches
     # apart) on the stage data of each bucket, beside the CUDA-event ms of
@@ -2042,6 +2078,15 @@ def main() -> int:
               "bucket": list(args_of["stage_prepare"][0].shape[:2]), "kernels": device})
         for name, d in device.items():
             (table[name] if path == "gossip" else table[name][path])["device_ms"] = d["kernel_ms"]
+        if path == "gossip":      # beside the attribution phase's event ms
+            kernels_of = {"prepare": ("stage_prepare",), "h2c": ("hash_to_g2",),
+                          "pairs": ("stage_pairs",),
+                          "pairing": ("miller_loop_product", "final_exp_easy_part",
+                                      "final_exp_hard_part")}
+            emit({"phase": "attribution_vs_profiler", "bucket": [N_SETS, N_PKS], "stages": {
+                stage: {"event_ms": attributed_ms[stage]["event_ms"],
+                        "profiler_kernel_ms": sum(device[k]["kernel_ms"] for k in ks)}
+                for stage, ks in kernels_of.items()}})
     device = {name: profile_ms(name, args) for name, args in msm_args.items()
               if name != "w_prime"}
     emit({"phase": "device_ms", "path": "kzg", "kernels": device,

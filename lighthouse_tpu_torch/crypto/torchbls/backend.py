@@ -30,7 +30,11 @@ resolved handle feeds the autotune profiler its bucket's time, and an
 autotune plan installed later retunes the dispatcher's depth.
 `verify_signature_sets` is `verify_signature_sets_async(...).result()`.
 `warm_stages` builds or loads the kernel library and runs one dummy
-verify at a bucket (autotune's startup warm-up).
+verify at a bucket (autotune's startup warm-up), and with program
+analytics on (observability/perf.py) counts the prepare and h2c programs'
+work at it. The stages dispatch through observability/device.py's
+`run_stage` (NVTX ranges; per-stage CUDA-event times when attribution is
+on).
 `aggregate_verify` (distinct messages) runs h2c, the pair assembly
 `aggregate_pairs` and the pairing stage. KZG (crypto/kzg.py) reaches the
 card through `g1_msm` (kernels.msm_varying), `g1_msm_fixed` (comb tables
@@ -48,6 +52,8 @@ import numpy as np
 import torch
 
 from ...autotune import profiler
+from ...observability import device as _obs_device
+from ...observability import perf as _obs_perf
 from ...observability.trace import current_trace
 from ...utils import torchcfg
 from ..bls381 import curve as pc
@@ -157,6 +163,10 @@ class TorchBackend:
     """Batched verification on one device (CUDA unless device="cpu")."""
 
     name = "torch"
+    # every resolved dispatch feeds the autotune profiler from inside
+    # VerifyHandle, so external measurement loops (autotune/calibrate.py)
+    # must not record the same verify a second time
+    autotune_self_recording = True
 
     def __init__(self, dst: bytes = DST_POP, device=None):
         self.dst = dst
@@ -251,11 +261,17 @@ class TorchBackend:
 
     @staticmethod
     def run(prepare_in, us):
-        """The four stages on marshalled inputs -> (ok, bad) 0-dim bools."""
-        z_pk, sig_acc, bad = stage_prepare(*prepare_in)
-        h_jac = stage_h2c(us)
-        pairs = stage_pairs(z_pk, h_jac, sig_acc, prepare_in[-1])
-        return stage_pairing(*pairs), bad
+        """The four stages on marshalled inputs -> (ok, bad) 0-dim bools.
+        Each dispatches through observability/device.py's run_stage: an
+        NVTX range on the card, and with attribution on, CUDA events around
+        it (which serialise the stages) into the per-stage families and the
+        current trace."""
+        attr = _obs_device.begin(tuple(prepare_in[0].shape[:2]), trace=current_trace())
+        z_pk, sig_acc, bad = _obs_device.run_stage(attr, "prepare", stage_prepare, *prepare_in)
+        h_jac = _obs_device.run_stage(attr, "h2c", stage_h2c, us)
+        pairs = _obs_device.run_stage(attr, "pairs", stage_pairs, z_pk, h_jac, sig_acc,
+                                      prepare_in[-1])
+        return _obs_device.run_stage(attr, "pairing", stage_pairing, *pairs), bad
 
     def verify_signature_sets_async(self, sets, rands, urgent: bool = False):
         """Marshal one batch here, on the caller's thread, then submit its
@@ -403,3 +419,11 @@ def warm_stages(n_sets: int, n_pks: int) -> None:
     sets = _dummy_sets(n_sets, n_pks)
     backend.verify_signature_sets(sets, [1] * len(sets))
     profiler.observe_compile(*padding_bucket(n_sets, n_pks), time.perf_counter() - t0)
+    if _obs_perf.analytics_enabled():
+        # the prepare and h2c programs' work at this bucket (pairs and
+        # pairing are counted at their first attributed dispatch: their
+        # inputs are stage outputs)
+        prepare_in, us = backend.marshal(sets, [1] * len(sets))
+        bucket = tuple(prepare_in[0].shape[:2])
+        _obs_perf.maybe_capture_program("prepare", stage_prepare, prepare_in, bucket)
+        _obs_perf.maybe_capture_program("h2c", stage_h2c, (us,), bucket)

@@ -60,10 +60,11 @@ def msm_window() -> int:
     Resolution:
       LIGHTHOUSE_TPU_MSM_WINDOW=<0|2|4|5|6>         explicit width
       LIGHTHOUSE_TPU_MSM_WINDOWED=0/1 (legacy)      bit form / w=4
+      the installed autotune plan's msm_window      the calibrated width
       DEFAULT_WINDOW                                the same on every device
-    The JAX package has one more layer between the env and the default,
-    the autotune plan's calibrated width; it waits for the port's autotune
-    seam (ROADMAP A.6)."""
+    The plan's width 0 is a measured verdict (the bit form won the
+    calibration sweep on this device) and is honoured; None means
+    unmeasured."""
     raw = os.environ.get("LIGHTHOUSE_TPU_MSM_WINDOW", "").strip()
     if raw:
         try:
@@ -75,6 +76,15 @@ def msm_window() -> int:
     legacy = os.environ.get("LIGHTHOUSE_TPU_MSM_WINDOWED", "").strip().lower()
     if legacy:
         return 0 if legacy in ("0", "no", "off", "false") else 4
+    try:
+        from ...autotune import runtime
+
+        plan = runtime.active_plan()
+    except Exception:
+        plan = None
+    w = getattr(plan, "msm_window", None) if plan is not None else None
+    if w == 0 or w in ALLOWED_WINDOWS:
+        return int(w)
     return DEFAULT_WINDOW
 
 

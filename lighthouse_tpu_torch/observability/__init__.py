@@ -1,6 +1,6 @@
 """Observability of the port: span tracing, the flight recorder, the SLO
-accountant and the device ledger (copies of the JAX package's modules of
-the same names).
+accountant, the device ledger, per-stage device attribution and program
+analytics (copies of the JAX package's modules of the same names).
 
   - `trace`: a lightweight span tracer. A Trace carries one work unit
     through the pipeline; completed traces land in a bounded ring and
@@ -16,6 +16,13 @@ the same names).
   - `device_ledger`: who holds the card and who waits — per-tenant busy
     time of the `bls`, `tree_hash` and `epoch` workloads, admit waits,
     cross-tenant contention, and exact per-chip conservation.
+  - `device`: per-stage device time of the verify — NVTX ranges around
+    every stage dispatch on the card, and with attribution on, CUDA events
+    into `torchbls_stage_{device,compile}_seconds` and `device:<stage>`
+    trace spans; `profile_stages` times the four stages at one bucket.
+  - `perf`: program analytics (each stage's integer instructions and bytes
+    at its inputs, `torchbls_program_*`) and the roofline against the
+    card's peaks.
 
 Always-on by design: recording a trace is appending a few floats to a
 deque. Nothing here initializes a device.
@@ -30,7 +37,7 @@ from .trace import (  # noqa: F401
     current_trace,
     set_current_trace,
 )
-from . import device_ledger, flight_recorder, slo  # noqa: F401  (registers their families + the log sink)
+from . import device, device_ledger, flight_recorder, perf, slo  # noqa: F401  (registers their families + the log sink)
 from .device_ledger import LEDGER  # noqa: F401
 from .flight_recorder import RECORDER  # noqa: F401
 from .slo import ACCOUNTANT  # noqa: F401

@@ -197,13 +197,21 @@ def route_totals() -> dict:
 
 def start_warmup(buckets=None) -> threading.Thread:
     """Run the ladder once at each bucket in a daemon thread, so the first
-    real state root skips the kernels' build. The default warms the
-    validator-registry scale the state root hits first; the reference's
-    autotune plan layer (`tree_hash_warmup`) comes with the port's autotune
-    plan. Any failure degrades to a cold first root, never a crashed
+    real state root skips the kernels' build. Without `buckets` it warms
+    the installed autotune plan's `tree_hash_warmup` (the calibrated
+    `tree_hash_buckets`), else the validator-registry scale the state root
+    hits first. Any failure degrades to a cold first root, never a crashed
     caller."""
     log = get_logger("torchhash.warmup")
-    buckets = tuple(buckets or ()) or (16384,)
+    if buckets is None:
+        plan = None
+        try:
+            from ..autotune import runtime
+
+            plan = runtime.active_plan()
+        except Exception:
+            pass
+        buckets = tuple(getattr(plan, "tree_hash_warmup", ()) or ()) or (16384,)
 
     def run():
         from . import engine

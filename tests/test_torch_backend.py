@@ -233,6 +233,11 @@ def test_import_and_cpu_verify_load_no_jax():
         "assert __import__('torch').cuda.is_available() or h._state == 'down'\n"
         "assert observability.LEDGER.workloads() == ['bls', 'epoch', 'tree_hash']\n"
         "assert autotune.runtime.active_plan() is None\n"
+        "from lighthouse_tpu_torch import cli\n"
+        "from lighthouse_tpu_torch.autotune import calibrate\n"
+        "from lighthouse_tpu_torch.observability import device, perf\n"
+        "assert cli.build_parser().parse_args(['autotune', 'show']).fn is cli.cmd_autotune\n"
+        "assert not device.enabled() and not perf.analytics_enabled()\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'lighthouse_tpu.'))"
         " or m == 'lighthouse_tpu']\n"
         "assert not bad, bad\n"

@@ -738,3 +738,53 @@ def test_hash_wrappers_take_the_plain_versions_on_the_cpu():
         assert wrapper.launches == before
     with pytest.raises(ValueError, match="device"):
         HK.epoch_deltas(*epoch_args(4, 4, "meta"))
+
+
+# ------------------------------------------- per-stage attribution (observability/device.py)
+
+
+@pytest.mark.cuda
+def test_attributed_stage_is_event_timed_on_the_card(cuda):
+    """An attributed hash_to_g2 on CUDA tensors: its device seconds come from
+    CUDA events (positive), the first dispatch at the bucket is the first
+    use, and the span's host bounds hold the event time."""
+    from lighthouse_tpu_torch.observability import device as obsdev
+    from lighthouse_tpu_torch.observability.trace import Trace
+
+    obsdev.reset_seen()
+    us = rand_limbs(41, (4, 2, 2)).to(cuda)
+    tr = Trace("gossip_attestation", 4)
+    with obsdev.attributed():
+        attr = obsdev.begin((4, 3), trace=tr)
+        for _ in range(3):
+            out = obsdev.run_stage(attr, "h2c", K.hash_to_g2, us)
+    assert all(torch.equal(a, b) for a, b in zip(out, K.hash_to_g2_plain(us)))
+    child = obsdev.STAGE_DEVICE_SECONDS.labels("h2c", 4, 3)
+    assert child.n == 2 and child.total > 0
+    assert obsdev.STAGE_COMPILE_SECONDS.labels("h2c", 4, 3).value > 0
+    assert [s[3]["phase"] for s in tr.spans] == ["compile", "execute", "execute"]
+    _name, t0, t1, _args = tr.spans[-1]
+    assert t1 - t0 >= 0.5 * child.total / child.n
+
+
+@pytest.mark.cuda
+def test_stage_dispatch_opens_an_nvtx_range_on_the_card(cuda, monkeypatch):
+    """Attribution off: a stage on CUDA tensors runs inside the NVTX range
+    torchbls:<stage>, one on CPU tensors in none, and nothing is recorded."""
+    from lighthouse_tpu_torch.observability import device as obsdev
+
+    ranges = []
+    real = torch.cuda.nvtx.range
+
+    def spy(name):
+        ranges.append(name)
+        return real(name)
+
+    monkeypatch.setattr(torch.cuda.nvtx, "range", spy)
+    x = torch.ones((16,), device=cuda)
+    n0 = obsdev.STAGE_DEVICE_SECONDS.labels("pairs", 4, 5).n
+    assert obsdev.run_stage(None, "pairs", lambda t: t + 1, x).sum().item() == 32
+    assert obsdev.run_stage(None, "pairs", lambda t: t + 1, x.cpu()).sum().item() == 32
+    assert ranges == ["torchbls:pairs"]
+    assert obsdev.STAGE_DEVICE_SECONDS.labels("pairs", 4, 5).n == n0
+
