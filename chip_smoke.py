@@ -111,14 +111,34 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
  10. attribution: observability.device.profile_stages(64, 128) and one
      gossip verify under device.attributed(): each stage's CUDA-event ms
      and its share of its bound, none above 1;
- 11. each kernel's device time from torch.profiler at the four buckets
-     (prepare's three launches apart), beside phase 3's CUDA-event times,
-     which take in the host's time where a wrapper's Python outlasts its
-     kernel, and the gossip bucket's sums per stage beside the attribution
-     phase's event ms; the MSM kernels' at the KZG path's full width;
-     fq_mont_mul's at each size of the field phase; the tree-hash and epoch
-     kernels' at their paths' width; last, the card's busy share of one
-     KZG batch verify.
+ 11. ef_state: the 168 EF cases under tests/ef/vectors/minimal but
+     ssz_static (156 state-transition cases, 12 shuffling) through the
+     port's ef_runner on "torch" with real signatures, in 4 worker
+     processes: each must pass, the path kernels must launch;
+ 12. block_mainnet: testing/block_fixtures.py's block (the mainnet preset
+     with deneb from genesis, 2^14 validators, the block at slot 64 with
+     128 attestations of 128 keys, the 512-key sync aggregate, the
+     proposer signature and the RANDAO reveal: 131 sets at bucket
+     (256, 512)), built on the host by a process started after the build
+     phase, imported through slot.state_transition (VERIFY_BULK, "torch",
+     the "device" hash backend) with the launch counts reset: the
+     post-state root equal to the block's and to a NO_VERIFICATION
+     import's, a copy with two attestations' signatures swapped rejected,
+     one batch of 131 sets, the six path kernels, sha256_ladder and
+     epoch_deltas launched; the import's wall time and its split (the
+     slots with the epoch and the state roots, building the sets, the
+     marshal, dispatch to verdict, the rest of the block, the post-state
+     root); then every kernel of the path against its plain version at
+     the path's shapes;
+ 13. each kernel's device time from torch.profiler at the four buckets
+     and (256, 512) (prepare's three launches apart), beside phase 3's
+     CUDA-event times, which take in the host's time where a wrapper's
+     Python outlasts its kernel, and the gossip bucket's sums per stage
+     beside the attribution phase's event ms; the MSM kernels' at the KZG
+     path's full width; fq_mont_mul's at each size of the field phase;
+     the tree-hash and epoch kernels' at their paths' width and the block
+     path's; the card's busy share of one KZG batch verify; last, of one
+     more block import (its signatures' cache cleared).
 The last two lines are the kernel table and the device line. To time
 another checkout's kernels with this script, copy it into that checkout's
 root and run it there.
@@ -180,6 +200,16 @@ MSG_LENGTHS, MSG_N = (0, 55, 56, 63, 64, 65, 119, 128), 1 << 14
 CALIBRATE_REPS = 6
 CALIBRATE_BUCKETS = ((4, 128), (16, 128), (64, 128), (512, 128), (4, 512))
 CALIBRATE_PATH = MAIN_PATH + ("msm_varying", "sha256_ladder")
+# the EF state-transition vectors (every case under minimal but ssz_static)
+# on "torch", in worker processes of their own
+EF_STATE_ROOT = os.path.join(ROOT, "tests", "ef", "vectors")
+EF_STATE_CASES, EF_STATE_WORKERS = 168, 4    # 156 state-transition cases and 12 shuffling
+# block import at mainnet width (testing/block_fixtures.py): 2^14
+# validators, 128 attestations of 128 keys, the 512-key sync aggregate,
+# the proposer signature and the RANDAO reveal in one batch verify
+BLOCK_PATH = MAIN_PATH + ("sha256_ladder", "epoch_deltas")
+BLOCK_SETS, BLOCK_BUCKET = 131, (256, 512)
+FIXTURE_WAIT_S = 900              # the block fixture's build, started with the script
 
 # 32-bit instructions of one SHA-256 compression as csrc/sha256.cu writes
 # it, at Hopper's three-input LOP3 and IADD3: a round is 14 (Sigma1 and
@@ -1656,7 +1686,242 @@ def attribution_phase(smi, att, rands) -> dict:
 # ------------------------------------------------------------ phases
 
 
+# ------------------------------------------------------------ block import
+
+
+CHILDREN = []                     # processes the script started; main() stops them
+
+
+def start_block_fixture():
+    """Build (or load) testing/block_fixtures.py's mainnet block in a
+    process of its own, on the host ("host" hash backend, no card), while
+    the card runs the phases before block_mainnet."""
+    env = dict(os.environ, LIGHTHOUSE_TPU_HASH_BACKEND="host", CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.Popen([sys.executable, "-m", "lighthouse_tpu_torch.testing.block_fixtures"],
+                            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    CHILDREN.append(proc)
+    return proc
+
+
+class CallTimer:
+    """Wall seconds spent in chosen functions while installed: each
+    (owner, attribute, label) is wrapped, and a label's calls are summed."""
+
+    def __init__(self, targets):
+        self.targets, self.seconds, self.saved = targets, {}, []
+
+    def __enter__(self):
+        for owner, attr, label in self.targets:
+            fn = getattr(owner, attr)
+            self.saved.append((owner, attr, fn))
+
+            def timed(*args, _fn=fn, _label=label, **kwargs):
+                t = time.perf_counter()
+                try:
+                    return _fn(*args, **kwargs)
+                finally:
+                    self.seconds[_label] = self.seconds.get(_label, 0.0) + time.perf_counter() - t
+
+            setattr(owner, attr, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, fn in reversed(self.saved):
+            setattr(owner, attr, fn)
+        self.saved = []
+
+
+def ef_state_phase(launches) -> None:
+    """Every state-transition case under tests/ef/vectors/minimal (all but
+    ssz_static) through the port's ef_runner on "torch" with the vectors'
+    real signatures, in EF_STATE_WORKERS processes: each case must pass."""
+    from lighthouse_tpu_torch.testing import ef_runner
+
+    out = ef_runner.run_vectors(
+        EF_STATE_ROOT, select=lambda c, f, r, h, d: c == "minimal" and r != "ssz_static",
+        backend="torch", workers=EF_STATE_WORKERS)
+    launches["ef_state"] = {name: out["launches"].get(name, 0) for name in kernel_registry()}
+    by_runner = {}
+    for case, seconds in out["seconds"].items():
+        runner = case.split("/")[2]
+        by_runner[runner] = by_runner.get(runner, 0.0) + seconds
+    cases = sum(out["passed"].values()) + len(out["failed"])
+    emit({"phase": "ef_state", "backend": "torch", "workers": EF_STATE_WORKERS, "cases": cases,
+          "passed_by_runner": out["passed"], "failed": out["failed"][:10],
+          "wall_seconds": out["wall_seconds"], "case_seconds_by_runner": by_runner,
+          "slowest": sorted(out["seconds"].items(), key=lambda kv: -kv[1])[:5],
+          "launches": {k: v for k, v in launches["ef_state"].items() if v}})
+    if out["failed"] or cases != EF_STATE_CASES:
+        raise SystemExit(f"EF state vectors failed: {len(out['failed'])} of {cases}")
+    missing = [k for k in MAIN_PATH if not launches["ef_state"][k]]
+    if missing:
+        raise SystemExit(f"kernels not launched on the ef_state path: {missing}")
+
+
+def block_mainnet_phase(drive, launches, check_kernels, smi, fixture_proc):
+    """The mainnet block's import through slot.state_transition (VERIFY_BULK,
+    "torch", the "device" hash backend), driven with the launch counts
+    reset, its wall time split by CallTimer; then the same block under
+    NO_VERIFICATION (the same root) and with two attestations' signatures
+    swapped (rejected), and each kernel of the path against its plain
+    version at the path's shapes. Returns the path kernels' rows, the
+    hash kernels' rows and their arguments, and the import to profile."""
+    import numpy as np
+    import torch
+
+    from lighthouse_tpu_torch.crypto import bls
+    from lighthouse_tpu_torch.crypto.torchbls import backend as be
+    from lighthouse_tpu_torch.state_transition import block as blk
+    from lighthouse_tpu_torch.state_transition import signature_sets as sigs
+    from lighthouse_tpu_torch.state_transition import slot as sl
+    from lighthouse_tpu_torch.testing import block_fixtures as bf
+    from lighthouse_tpu_torch.torchhash import engine
+    from lighthouse_tpu_torch.torchhash import epoch_vectors as ev
+    from lighthouse_tpu_torch.torchhash import kernels as HK
+    from lighthouse_tpu_torch.torchhash import router
+    from lighthouse_tpu_torch.types.state_util import clone_state
+
+    t0 = time.perf_counter()
+    out, err = fixture_proc.communicate(timeout=FIXTURE_WAIT_S)
+    if fixture_proc.returncode != 0:
+        raise SystemExit(f"the block fixture's build failed: {err[-3000:]}")
+    built = json.loads(out.strip().splitlines()[-1])
+    wait_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fx = bf.load_or_build()
+    load_s = time.perf_counter() - t0
+    spec, types, pre, signed = fx.spec, fx.types, fx.pre_state, fx.block
+    router.set_hash_backend("device")
+    bls.set_backend("torch")
+    backend = bls.get_backend()
+    t0 = time.perf_counter()
+    types.BeaconState.hash_tree_root(pre)          # a node's head state: its tree caches warm
+    warm_s = time.perf_counter() - t0
+
+    # the batch's sets, the leaves of each device tree build and the epoch
+    # leg's arrays (the kernel wrappers count launches on their own names,
+    # so their callers are wrapped, not they)
+    captured = {"sets": [], "leaves": [], "epoch": []}
+
+    def capture(label, fn):
+        def wrapped(*args, **kwargs):
+            captured[label].append(list(args[0].sets) if label == "sets" else args)
+            return fn(*args, **kwargs)
+        return wrapped
+
+    set_builders = ("block_proposal_set", "randao_set", "indexed_attestation_set",
+                    "sync_aggregate_set")
+    timer = CallTimer([(sl, "process_slots", "process_slots"), (sl, "process_epoch", "epoch"),
+                       (sl, "per_block_processing", "per_block_processing"),
+                       (blk.SignatureBatch, "verify", "batch_verify"),
+                       (backend, "marshal", "marshal")]
+                      + [(sigs, name, "build_sets") for name in set_builders])
+    saved = (blk.SignatureBatch.verify, engine.device_build_levels, ev._device_altair_deltas)
+    blk.SignatureBatch.verify = capture("sets", saved[0])
+    engine.device_build_levels = capture("leaves", saved[1])
+    ev._device_altair_deltas = capture("epoch", saved[2])
+    routes_before, epoch_before = router.route_totals(), ev.epoch_totals()
+    state = clone_state(pre, spec)
+    try:
+        with timer:
+            post, wall_s = drive("block_mainnet", BLOCK_PATH, lambda: sl.state_transition(
+                state, signed, spec, strategy=blk.SignatureStrategy.VERIFY_BULK))
+    finally:
+        blk.SignatureBatch.verify, engine.device_build_levels, ev._device_altair_deltas = saved
+    routes = {k: v - routes_before.get(k, 0) for k, v in router.route_totals().items()
+              if v != routes_before.get(k, 0)}
+    epochs = {k: v - epoch_before.get(k, 0) for k, v in ev.epoch_totals().items()}
+    post_root = types.BeaconState.hash_tree_root(post)
+    T = timer.seconds
+    split = {"process_slots": T["process_slots"], "epoch": T["epoch"],
+             "state_roots_in_process_slots": T["process_slots"] - T["epoch"],
+             "build_sets": T["build_sets"], "batch_verify": T["batch_verify"],
+             "marshal": T["marshal"], "dispatch_to_verdict": T["batch_verify"] - T["marshal"],
+             "rest_of_per_block_processing":
+                 T["per_block_processing"] - T["build_sets"] - T["batch_verify"],
+             "post_state_root": wall_s - T["process_slots"] - T["per_block_processing"]}
+
+    # the same block without verification, then the swapped one
+    t0 = time.perf_counter()
+    quiet = sl.state_transition(clone_state(pre, spec), signed, spec,
+                                strategy=blk.SignatureStrategy.NO_VERIFICATION)
+    quiet_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    try:
+        sl.state_transition(clone_state(pre, spec), fx.swapped, spec,
+                            strategy=blk.SignatureStrategy.VERIFY_BULK)
+        swapped_rejected = False
+    except blk.BlockProcessingError as e:
+        swapped_rejected = "bulk signature" in str(e)
+    swapped_s = time.perf_counter() - t0
+    sets = captured["sets"][0] if len(captured["sets"]) == 1 else []
+    bucket = be.padding_bucket(len(sets), max(len(x.signing_keys) for x in sets)) if sets else None
+    checks = {"root_equals_block": post_root == bytes(signed.message.state_root),
+              "root_equals_no_verification": types.BeaconState.hash_tree_root(quiet) == post_root,
+              "swapped_rejected": swapped_rejected,
+              "one_batch_of_131": len(captured["sets"]) == 1 and len(sets) == BLOCK_SETS,
+              "bucket": bucket == BLOCK_BUCKET,
+              "device_ok_routes": routes.get("device/ok", 0) > 0,
+              "no_device_error": not routes.get("host/device_error"),
+              "epoch_device_ok": epochs.get("ok", 0) >= 1 and not epochs.get("error")}
+    emit({"phase": "block_mainnet", "nvidia_smi": smi, "validators": len(pre.validators),
+          "slot": int(signed.message.slot), "sets": len(sets), "bucket": bucket,
+          "attestations": len(signed.message.body.attestations),
+          "fixture": {"build": built, "wait_seconds": wait_s, "load_seconds": load_s,
+                      "warm_root_seconds": warm_s},
+          "import_seconds": wall_s, "split_seconds": split,
+          "no_verification_seconds": quiet_s, "swapped_seconds": swapped_s,
+          "routes": routes, "epoch_device_totals": epochs, "checks": checks,
+          "device_tree_builds": [int(a[0].shape[0]) for a in captured["leaves"]],
+          "launches": launches["block_mainnet"]})
+    if not all(checks.values()):
+        raise SystemExit(f"the block_mainnet path failed its checks: {checks}")
+
+    # each kernel of the path against its plain version at its shapes
+    rows, own, args = check_kernels("block_mainnet", sets)
+    hash_rows, hash_args = {}, {}
+    by_width = {}
+    for leaves, *_depth in captured["leaves"]:    # the ladder's input, as the engine places it
+        words = np.zeros((engine.hash_bucket(leaves.shape[0]), 8), np.int32)
+        words[:leaves.shape[0]] = engine.words_from_leaves(leaves)
+        by_width.setdefault(words.shape[0], (torch.from_numpy(words).to(engine.device()),))
+    for n, a in sorted(by_width.items(), reverse=True):       # each width the path hashed
+        nodes = sum(HK.ladder_widths(n))
+        row = hash_kernel_row("sha256_ladder", f"block_mainnet_{n}", a, nodes * SHA_NODE_OPS,
+                              32 * (n + nodes), 5)
+        hash_rows.setdefault("sha256_ladder", row)
+        hash_args.setdefault("sha256_ladder", a)
+    _n, eff, part_masks, eligible, target, scores, *scalars = captured["epoch"][0]
+    e = ev.kernel_inputs(engine.device(), eff, part_masks, eligible, target, scores) + tuple(
+        scalars)
+    n = int(e[0].shape[0])
+    hash_rows["epoch_deltas"] = hash_kernel_row(
+        "epoch_deltas", "block_mainnet", e, n * EPOCH_OPS, n * (8 + 8 + 7 * 8) + (5 * n + 7) // 8, 5)
+    hash_args["epoch_deltas"] = e
+
+    def profiled_import():
+        """The import once more, as the first was: the signatures not yet
+        decompressed (their cache cleared)."""
+        st = clone_state(pre, spec)
+        bls.Signature._CACHE.clear()
+        return lambda: sl.state_transition(st, signed, spec,
+                                           strategy=blk.SignatureStrategy.VERIFY_BULK)
+
+    return rows, args, hash_rows, hash_args, profiled_import
+
+
 def main() -> int:
+    try:
+        return run()
+    finally:
+        for proc in CHILDREN:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def run() -> int:
     script_t0 = time.perf_counter()
     if not os.path.exists(FIXTURES) or not os.path.isdir(os.path.join(ROOT, "lighthouse_tpu_torch")):
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
@@ -1703,6 +1968,7 @@ def main() -> int:
           "hash_library": os.path.relpath(str(hl.path), ROOT),
           "hash_nvcc_seconds": round(hl.build_seconds, 3),
           "hash_ptxas": ptxas_summary(hl.ptxas_log)})
+    fixture_proc = start_block_fixture()
 
     # 2. field self-test and sweep ------------------------------------------
     field_cases = field_phase(dev)
@@ -2048,6 +2314,17 @@ def main() -> int:
                                                                     check_kernels)
     attributed_ms = attribution_phase(smi, att, rands)
 
+    # the EF state-transition vectors on the card, then a mainnet block's import
+    t0 = time.perf_counter()
+    bls.set_backend("torch")
+    ef_state_phase(launches)
+    ef_state_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (checks["block_mainnet"], kernel_args["block_mainnet"], block_hash_rows, block_hash_args,
+     profiled_import) = block_mainnet_phase(drive, launches, check_kernels, smi, fixture_proc)
+    emit({"phase": "block_phases_seconds", "ef_state": ef_state_s,
+          "block_mainnet": time.perf_counter() - t0})
+
     # the kernel line: the gossip path's numbers (the MSM kernels': the KZG
     # path's; the tree-hash and epoch kernels': their paths'), then each
     # path's launches and the sync and urgent buckets' checks
@@ -2065,7 +2342,10 @@ def main() -> int:
         }
         if name in checks["sync"]:
             table[name].update(sync=checks["sync"][name], urgent=checks["urgent"][name],
-                               calibrate=checks["calibrate"][name])
+                               calibrate=checks["calibrate"][name],
+                               block_mainnet=checks["block_mainnet"][name])
+        if name in block_hash_rows:
+            table[name]["block_mainnet"] = block_hash_rows[name]
 
     # each kernel's device ms from the profiler (prepare's three launches
     # apart) on the stage data of each bucket, beside the CUDA-event ms of
@@ -2097,9 +2377,15 @@ def main() -> int:
     emit({"phase": "device_ms", "path": "state_root/epoch", "kernels": device})
     for name, d in device.items():
         table[name]["device_ms"] = d["kernel_ms"]
+    device = {name: profile_ms(name, args) for name, args in block_hash_args.items()}
+    emit({"phase": "device_ms", "path": "block_mainnet (hash)", "kernels": device})
+    for name, d in device.items():
+        table[name]["block_mainnet"]["device_ms"] = d["kernel_ms"]
     emit_field_device_ms(field_cases)
-    # last: the one long profiler session, so no short one follows it
     emit({"phase": "kzg_device_share", **device_share(kzg_verify)})
+    # last: the block import's long profiler session, so no short one follows it
+    emit({"phase": "block_mainnet_device_share", "nvidia_smi": smi,
+          **device_share(profiled_import())})
 
     emit({"phase": "script_seconds", "seconds": time.perf_counter() - script_t0})
     emit({"kernels": [table[k] for k in kernel_registry()]})

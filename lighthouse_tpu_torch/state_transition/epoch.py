@@ -50,13 +50,19 @@ def _process_epoch_altair(state, spec, types, fork):
     process_inactivity_updates(state, spec)
     process_rewards_and_penalties_altair(state, spec, fork)
     if fork >= ForkName.electra:
-        # electra's epoch steps (the reference's state_transition/electra.py)
-        # come with the port's block processing (ROADMAP A.7)
-        raise NotImplementedError("electra epoch processing is not ported yet")
-    process_registry_updates(state, spec)
-    process_slashings(state, spec, fork)
-    process_eth1_data_reset(state, spec)
-    process_effective_balance_updates(state, spec)
+        from . import electra as el
+
+        el.process_registry_updates_electra(state, spec)
+        el.process_slashings_electra(state, spec)
+        process_eth1_data_reset(state, spec)
+        el.process_pending_deposits(state, spec, types)
+        el.process_pending_consolidations(state, spec)
+        el.process_effective_balance_updates_electra(state, spec)
+    else:
+        process_registry_updates(state, spec)
+        process_slashings(state, spec, fork)
+        process_eth1_data_reset(state, spec)
+        process_effective_balance_updates(state, spec)
     process_slashings_reset(state, spec)
     process_randao_mixes_reset(state, spec)
     if fork >= ForkName.capella:

@@ -25,10 +25,18 @@ def initiate_validator_exit(state, spec: ChainSpec, index: int) -> None:
     if v.exit_epoch != FAR_FUTURE_EPOCH:
         return
     if hasattr(state, "earliest_exit_epoch"):
-        # electra: balance-denominated churn (EIP-7251), in the reference's
-        # state_transition/electra.py, which comes with the port's block
-        # processing (ROADMAP A.7)
-        raise NotImplementedError("electra exit churn is not ported yet")
+        # electra: balance-denominated churn (EIP-7251)
+        from .electra import compute_exit_epoch_and_update_churn
+
+        exit_queue_epoch = compute_exit_epoch_and_update_churn(
+            state, spec, v.effective_balance
+        )
+        state.validators[index] = v.copy_with(
+            exit_epoch=exit_queue_epoch,
+            withdrawable_epoch=exit_queue_epoch
+            + spec.min_validator_withdrawability_delay,
+        )
+        return
     exit_epochs = [
         w.exit_epoch for w in state.validators if w.exit_epoch != FAR_FUTURE_EPOCH
     ]

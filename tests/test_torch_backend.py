@@ -238,6 +238,23 @@ def test_import_and_cpu_verify_load_no_jax():
         "from lighthouse_tpu_torch.observability import device, perf\n"
         "assert cli.build_parser().parse_args(['autotune', 'show']).fn is cli.cmd_autotune\n"
         "assert not device.enabled() and not perf.analytics_enabled()\n"
+        "from lighthouse_tpu_torch.state_transition import (block, block_replayer, electra,\n"
+        "    genesis, signature_sets, slot)\n"
+        "from lighthouse_tpu_torch.chain import eth1\n"
+        "from lighthouse_tpu_torch.network import snappy\n"
+        "from lighthouse_tpu_torch.fork_choice import fork_choice, proto_array\n"
+        "from lighthouse_tpu_torch.testing import (block_fixtures, carry, compare_fields,\n"
+        "    ef_runner, harness)\n"
+        "bls.set_backend('fake')\n"
+        "router.set_hash_backend('host')\n"
+        "out = ef_runner.run_vectors('tests/ef/vectors', select=lambda c, f, r, h, d:\n"
+        "    f in ('deneb', 'electra') and (r in ('epoch_processing', 'fork') or h == 'slots'))\n"
+        "assert not out['failed'] and sum(out['passed'].values()) == 32, out\n"
+        "hs = harness.StateHarness.new(ef_runner.spec_at_fork('minimal', 'electra'), 8)\n"
+        "blocks = hs.extend_chain(2)\n"
+        "replayed = block_replayer.BlockReplayer(spec=hs.spec, state=genesis.interop_genesis_state(\n"
+        "    hs.keypairs, hs.genesis_time, hs.spec), verify_state_roots=True).apply_blocks(blocks)\n"
+        "assert replayed.slot == 2\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'lighthouse_tpu.'))"
         " or m == 'lighthouse_tpu']\n"
         "assert not bad, bad\n"
