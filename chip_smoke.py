@@ -65,9 +65,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
      its width refused;
   7. the tree-hash and epoch paths of lighthouse_tpu_torch.torchhash at
      the mainnet registry's width, 2^20 validators, driven like the BLS
-     paths: state_root (the reference's state_root_1m scenario: a seeded
-     synthetic state, its cold root, then 4 slots of clone_state, 8
-     validator and 32 balance writes and a re-root; the roots distinct,
+     paths: state_root (the port's loadgen run_state_root_scenario on
+     state_root_1m: a seeded synthetic state, its cold root, then 4 slots
+     of clone_state, 8 validator and 32 balance writes and a re-root; the
+     scenario's report printed; the roots distinct,
      the last equal to uncached_state_root's host rehash, the balances
      conserved, the router's device/ok routes and no host/device_error;
      the host hashlib ladder over the validators' roots as the yardstick)
@@ -130,7 +131,23 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
      marshal, dispatch to verdict, the rest of the block, the post-state
      root); then every kernel of the path against its plain version at
      the path's shapes;
- 13. each kernel's device time from torch.profiler at the four buckets
+ 13. beacon_chain: the same block through chain/beacon_chain.py's
+     BeaconChain from the fixture's genesis ("torch", the "device" hash
+     backend): the state-advance timer at slot 63, then gossip verify and
+     process_block (130 sets at (256, 512)) with the launch counts reset:
+     the head, its state root (the block's and block_mainnet's), the
+     store's block and state and the fork-choice head checked; a fresh
+     chain rejects the swapped copy and keeps its anchor; 64 single
+     attestations of slot 64 (one key each) in one batch at (64, 1), all
+     verified, then deduped; on chains started from the block by
+     from_checkpoint, one of them signed by a wrong key leaves 63 (the
+     per-set fallback) and submit_attestation_batch gives the same
+     verdicts; the walls split (the advance, per_slot_task, gossip verify,
+     process_block: building the sets, marshal, dispatch to verdict, store
+     writes, fork choice); every kernel of the path against its plain
+     version at (256, 512) and (64, 1), the ladder and epoch_deltas at the
+     path's widths;
+ 14. each kernel's device time from torch.profiler at the four buckets
      and (256, 512) (prepare's three launches apart), beside phase 3's
      CUDA-event times, which take in the host's time where a wrapper's
      Python outlasts its kernel, and the gossip bucket's sums per stage
@@ -138,7 +155,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
      path's full width; fq_mont_mul's at each size of the field phase;
      the tree-hash and epoch kernels' at their paths' width and the block
      path's; the card's busy share of one KZG batch verify; last, of one
-     more block import (its signatures' cache cleared).
+     more import through BeaconChain and one more through
+     state_transition (their signatures' cache cleared).
 The last two lines are the kernel table and the device line. To time
 another checkout's kernels with this script, copy it into that checkout's
 root and run it there.
@@ -183,11 +201,10 @@ KZG_VERIFY_REPEATS = 5            # batch verifies; the median is reported
 MSM_SUBSET = 256                  # points of the kernels' subset check
 INV_ITERS = 15                    # inversions per chain in product_latency (odd: x -> x^-1)
 INV_N = 1 << 16                   # random elements of the inversion check
-# the tree-hash and epoch paths: the reference's state_root_1m scenario
-# (lighthouse_tpu/loadgen/scenarios.py:341): the mainnet registry, 4 slots
-# of 8 validator and 32 balance writes each, seed 0xC0FFEE
-STATE_ROOT_N, STATE_ROOT_SLOTS, STATE_ROOT_SEED = 1 << 20, 4, 0xC0FFEE
-CHURN_VALIDATORS, CHURN_BALANCES = 8, 32
+# the tree-hash and epoch paths: the port's state_root_1m loadgen scenario
+# (lighthouse_tpu_torch/loadgen/scenarios.py): the mainnet registry, 4
+# slots of 8 validator and 32 balance writes each, seed 0xC0FFEE
+STATE_ROOT_SCENARIO, STATE_ROOT_N = "state_root_1m", 1 << 20
 EPOCH_N, EPOCH_SEED = 1 << 20, 0xE90C
 STATE_ROOT_PATH, EPOCH_PATH = ("sha256_ladder",), ("epoch_deltas",)
 PROBE_WAIT_S = 300                # the hybrid router's probe and urgent warm, at most
@@ -210,6 +227,13 @@ EF_STATE_CASES, EF_STATE_WORKERS = 168, 4    # 156 state-transition cases and 12
 BLOCK_PATH = MAIN_PATH + ("sha256_ladder", "epoch_deltas")
 BLOCK_SETS, BLOCK_BUCKET = 131, (256, 512)
 FIXTURE_WAIT_S = 900              # the block fixture's build, started with the script
+# the same block through chain/beacon_chain.py's BeaconChain (gossip
+# verify, then process_block with the proposal verified: 130 sets), then
+# SINGLES unaggregated attestations of slot 64 in one gossip batch (one
+# key each, 16 of each of the slot's 4 committees), signed on SIGN_WORKERS
+# processes; the SINGLES_BAD-th signed by the wrong key in a second batch
+BEACON_CHAIN_PATH = MAIN_PATH + ("sha256_ladder", "epoch_deltas")
+CHAIN_SETS, SINGLES, SINGLES_BAD, SIGN_WORKERS = 130, 64, 17, 8
 
 # 32-bit instructions of one SHA-256 compression as csrc/sha256.cu writes
 # it, at Hopper's three-input LOP3 and IADD3: a round is 14 (Sigma1 and
@@ -1069,63 +1093,49 @@ def sync_timed(fn, *args):
 
 
 def state_root_phase(drive, launches) -> tuple:
-    """The state_root path: the reference's state_root_1m scenario through
-    the port's types.BeaconState.hash_tree_root on the "device" hash
-    backend, driven with the launch counts reset (`drive`). Checks the
-    roots distinct, the last equal to uncached_state_root (a host hashlib
-    rehash of a copy, fresh tree cache), the balances conserved, the
-    routes (device/ok, no host/device_error); times the host hashlib
-    ladder over the validators' roots (the reference's "host" route) as
-    the yardstick. Returns the validators' roots, the ladder's leaves,
-    and the host ladder's root over them."""
-    import random
-
+    """The state_root path: the port's loadgen run_state_root_scenario on
+    the state_root_1m scenario (lighthouse_tpu_torch/loadgen/scenarios.py)
+    on the "device" hash backend, driven with the launch counts reset
+    (`drive`), its fixture not cached on disk. Checks the roots distinct,
+    the last equal to uncached_state_root (a host hashlib rehash of a copy,
+    fresh tree cache), the balances conserved (the report's conservation
+    block), the routes (device/ok, no host/device_error); times the host
+    hashlib ladder over the validators' roots (the reference's "host"
+    route) as the yardstick. Returns the validators' roots, the ladder's
+    leaves, and the host ladder's root over them."""
     import numpy as np
 
+    from lighthouse_tpu_torch.loadgen.scenarios import get_state_root_scenario
+    from lighthouse_tpu_torch.loadgen.state_root import run_state_root_scenario
     from lighthouse_tpu_torch.ssz import tree_cache as tc
     from lighthouse_tpu_torch.testing import state_fixtures as fx
     from lighthouse_tpu_torch.torchhash import router
-    from lighthouse_tpu_torch.types.state_util import clone_state
 
+    sc = get_state_root_scenario(STATE_ROOT_SCENARIO, hash_backend="device")
     router.set_hash_backend("device")
-    t0 = time.perf_counter()
-    spec, types, state = fx.build_synthetic_state(
-        STATE_ROOT_N, participation_seed=STATE_ROOT_SEED & 0xFFFF, cache=False)
-    build_s = time.perf_counter() - t0
-    expected_total = sum(state.balances)
-    routes_before = router.route_totals()
-    times = {"reroot_s": []}
+    # the scenario's build (not cached on disk: built, as a node holds it)
+    # and its ground truth, timed; the final state kept
+    seen, build, uncached = {}, fx.build_synthetic_state, fx.uncached_state_root
 
-    def churn():
-        st = state
+    def timed_build(*args, **kwargs):
         t = time.perf_counter()
-        roots = [types.BeaconState.hash_tree_root(st)]
-        times["cold_s"] = time.perf_counter() - t
-        rng, moved = random.Random(STATE_ROOT_SEED), 0
-        for slot in range(1, STATE_ROOT_SLOTS + 1):
-            st = clone_state(st, spec)
-            st.slot = slot
-            for k in range(CHURN_VALIDATORS + CHURN_BALANCES):
-                i = rng.randrange(STATE_ROOT_N)
-                step = 10**9 if k < CHURN_VALIDATORS else 10**8
-                new_bal = max(0, st.balances[i] + rng.randrange(-step, step))
-                moved += new_bal - st.balances[i]
-                st.balances[i] = new_bal
-                if k < CHURN_VALIDATORS:
-                    st.validators[i] = st.validators[i].copy_with(
-                        effective_balance=(new_bal // 10**9) * 10**9)
-            t = time.perf_counter()
-            roots.append(types.BeaconState.hash_tree_root(st))
-            times["reroot_s"].append(time.perf_counter() - t)
-        return st, roots, moved
+        out = build(*args, cache=False, **kwargs)
+        seen["build_s"] = time.perf_counter() - t
+        return out
 
-    (final, roots, moved), path_s = drive("state_root", STATE_ROOT_PATH, churn)
-    after = router.route_totals()
-    routes = {k: v - routes_before.get(k, 0) for k, v in after.items() if v != routes_before.get(k, 0)}
-    t = time.perf_counter()
-    truth = fx.uncached_state_root(types, final)
-    uncached_s = time.perf_counter() - t
-    balance_total = sum(final.balances)
+    def timed_uncached(types, state):
+        t = time.perf_counter()
+        seen["truth"] = uncached(types, state)
+        seen["uncached_s"], seen["types"], seen["final"] = time.perf_counter() - t, types, state
+        return seen["truth"]
+
+    fx.build_synthetic_state, fx.uncached_state_root = timed_build, timed_uncached
+    try:
+        report, path_s = drive("state_root", STATE_ROOT_PATH, lambda: run_state_root_scenario(sc))
+    finally:
+        fx.build_synthetic_state, fx.uncached_state_root = build, uncached
+    types, final = seen["types"], seen["final"]
+    routes, cons = report["tree_hash_routes"], report["conservation"]
     # the validators' roots (memoized by the path), and the host hashlib
     # ladder over them: the reference's "host" route at the same width
     vt = next(f.type.element for f in types.BeaconState.fields if f.name == "validators")
@@ -1135,18 +1145,22 @@ def state_root_phase(drive, launches) -> tuple:
     host_root = tc._build(vroots, STATE_ROOT_N.bit_length() - 1)[1]
     host_ladder_s = time.perf_counter() - t
     router.set_hash_backend("device")
-    checks = {"roots_distinct": len(set(roots)) == len(roots),
-              "root_matches_uncached": truth == roots[-1],
-              "balances_conserved": balance_total == expected_total + moved,
+    checks = {"roots_distinct": cons["roots_distinct"],
+              "root_matches_uncached": cons["root_matches_uncached"],
+              "balances_conserved": cons["balances_ok"],
+              "all_slots_rerooted": report["roots"] == sc.slots + 1,
               "device_ok_routes": routes.get("device/ok", 0) > 0,
               "no_device_error": not routes.get("host/device_error")}
-    emit({"phase": "state_root", "validators": STATE_ROOT_N, "slots": STATE_ROOT_SLOTS,
-          "churn": [CHURN_VALIDATORS, CHURN_BALANCES], "build_seconds": build_s,
-          "cold_root_seconds": times["cold_s"], "reroot_seconds": times["reroot_s"],
-          "reroot_median_seconds": sorted(times["reroot_s"])[len(times["reroot_s"]) // 2],
-          "path_seconds": path_s, "uncached_root_seconds": uncached_s,
-          "host_ladder_seconds_2_20": host_ladder_s, "root": roots[-1].hex(),
-          "routes": routes, "checks": checks, "launches": launches_of(launches, "state_root")})
+    emit({"phase": "state_root", "scenario": sc.name, "validators": sc.n_validators,
+          "slots": sc.slots, "churn": [sc.churn_validators, sc.churn_balances],
+          "build_seconds": seen["build_s"], "cold_root_seconds": report["cold_ms"] / 1e3,
+          "reroot_median_seconds": report["reroot_p50_ms"] / 1e3, "path_seconds": path_s,
+          "uncached_root_seconds": seen["uncached_s"], "host_ladder_seconds_2_20": host_ladder_s,
+          "root": seen["truth"].hex(), "routes": routes, "checks": checks,
+          "report": {k: report[k] for k in ("hash_backend", "published", "mutations", "roots",
+                                            "cold_ms", "reroot_p50_ms", "roots_per_sec",
+                                            "conservation", "cow", "elapsed_secs")},
+          "launches": launches_of(launches, "state_root")})
     if not all(checks.values()):
         raise SystemExit(f"the state_root path failed its checks: {checks}")
     return vroots, host_root
@@ -1759,6 +1773,39 @@ def ef_state_phase(launches) -> None:
         raise SystemExit(f"kernels not launched on the ef_state path: {missing}")
 
 
+def block_path_hash_rows(path: str, captured) -> tuple[dict, dict]:
+    """sha256_ladder at each width the block path's device tree builds
+    hashed (`captured["leaves"]`, the widest first) and epoch_deltas on the
+    epoch leg's inputs (`captured["epoch"]`), against their plain versions
+    on the card. Returns the rows (the widest ladder) and their arguments."""
+    import numpy as np
+    import torch
+
+    from lighthouse_tpu_torch.torchhash import engine
+    from lighthouse_tpu_torch.torchhash import epoch_vectors as ev
+    from lighthouse_tpu_torch.torchhash import kernels as HK
+
+    hash_rows, hash_args, by_width = {}, {}, {}
+    for leaves, *_depth in captured["leaves"]:    # the ladder's input, as the engine places it
+        words = np.zeros((engine.hash_bucket(leaves.shape[0]), 8), np.int32)
+        words[:leaves.shape[0]] = engine.words_from_leaves(leaves)
+        by_width.setdefault(words.shape[0], (torch.from_numpy(words).to(engine.device()),))
+    for n, a in sorted(by_width.items(), reverse=True):       # each width the path hashed
+        nodes = sum(HK.ladder_widths(n))
+        row = hash_kernel_row("sha256_ladder", f"{path}_{n}", a, nodes * SHA_NODE_OPS,
+                              32 * (n + nodes), 5)
+        hash_rows.setdefault("sha256_ladder", row)
+        hash_args.setdefault("sha256_ladder", a)
+    _n, eff, part_masks, eligible, target, scores, *scalars = captured["epoch"][0]
+    e = ev.kernel_inputs(engine.device(), eff, part_masks, eligible, target, scores) + tuple(
+        scalars)
+    n = int(e[0].shape[0])
+    hash_rows["epoch_deltas"] = hash_kernel_row(
+        "epoch_deltas", path, e, n * EPOCH_OPS, n * (8 + 8 + 7 * 8) + (5 * n + 7) // 8, 5)
+    hash_args["epoch_deltas"] = e
+    return hash_rows, hash_args
+
+
 def block_mainnet_phase(drive, launches, check_kernels, smi, fixture_proc):
     """The mainnet block's import through slot.state_transition (VERIFY_BULK,
     "torch", the "device" hash backend), driven with the launch counts
@@ -1766,10 +1813,8 @@ def block_mainnet_phase(drive, launches, check_kernels, smi, fixture_proc):
     NO_VERIFICATION (the same root) and with two attestations' signatures
     swapped (rejected), and each kernel of the path against its plain
     version at the path's shapes. Returns the path kernels' rows, the
-    hash kernels' rows and their arguments, and the import to profile."""
-    import numpy as np
-    import torch
-
+    hash kernels' rows and their arguments, the import to profile, the
+    fixture and the post-state root."""
     from lighthouse_tpu_torch.crypto import bls
     from lighthouse_tpu_torch.crypto.torchbls import backend as be
     from lighthouse_tpu_torch.state_transition import block as blk
@@ -1778,7 +1823,6 @@ def block_mainnet_phase(drive, launches, check_kernels, smi, fixture_proc):
     from lighthouse_tpu_torch.testing import block_fixtures as bf
     from lighthouse_tpu_torch.torchhash import engine
     from lighthouse_tpu_torch.torchhash import epoch_vectors as ev
-    from lighthouse_tpu_torch.torchhash import kernels as HK
     from lighthouse_tpu_torch.torchhash import router
     from lighthouse_tpu_torch.types.state_util import clone_state
 
@@ -1880,25 +1924,7 @@ def block_mainnet_phase(drive, launches, check_kernels, smi, fixture_proc):
 
     # each kernel of the path against its plain version at its shapes
     rows, own, args = check_kernels("block_mainnet", sets)
-    hash_rows, hash_args = {}, {}
-    by_width = {}
-    for leaves, *_depth in captured["leaves"]:    # the ladder's input, as the engine places it
-        words = np.zeros((engine.hash_bucket(leaves.shape[0]), 8), np.int32)
-        words[:leaves.shape[0]] = engine.words_from_leaves(leaves)
-        by_width.setdefault(words.shape[0], (torch.from_numpy(words).to(engine.device()),))
-    for n, a in sorted(by_width.items(), reverse=True):       # each width the path hashed
-        nodes = sum(HK.ladder_widths(n))
-        row = hash_kernel_row("sha256_ladder", f"block_mainnet_{n}", a, nodes * SHA_NODE_OPS,
-                              32 * (n + nodes), 5)
-        hash_rows.setdefault("sha256_ladder", row)
-        hash_args.setdefault("sha256_ladder", a)
-    _n, eff, part_masks, eligible, target, scores, *scalars = captured["epoch"][0]
-    e = ev.kernel_inputs(engine.device(), eff, part_masks, eligible, target, scores) + tuple(
-        scalars)
-    n = int(e[0].shape[0])
-    hash_rows["epoch_deltas"] = hash_kernel_row(
-        "epoch_deltas", "block_mainnet", e, n * EPOCH_OPS, n * (8 + 8 + 7 * 8) + (5 * n + 7) // 8, 5)
-    hash_args["epoch_deltas"] = e
+    hash_rows, hash_args = block_path_hash_rows("block_mainnet", captured)
 
     def profiled_import():
         """The import once more, as the first was: the signatures not yet
@@ -1908,7 +1934,344 @@ def block_mainnet_phase(drive, launches, check_kernels, smi, fixture_proc):
         return lambda: sl.state_transition(st, signed, spec,
                                            strategy=blk.SignatureStrategy.VERIFY_BULK)
 
-    return rows, args, hash_rows, hash_args, profiled_import
+    return rows, args, hash_rows, hash_args, profiled_import, fx, post_root
+
+
+def beacon_chain_phase(drive, launches, check_kernels, smi, fx, post_root):
+    """The mainnet block through chain/beacon_chain.py's BeaconChain on
+    "torch" and the "device" hash backend: a chain anchored at the
+    fixture's genesis state (the anchor root derived from its
+    latest_block_header, the block's parent: the 63 slots before it are
+    empty), its state-advance timer at slot 63 (advance_head_state: slots
+    0 to 64, the epoch transitions), then per_slot_task at slot 64,
+    verify_block_for_gossip and process_block with the proposal verified,
+    driven with the launch counts reset and their walls split by
+    CallTimer, the signatures' cache cleared first (as a node first sees
+    them). A chain anchored in a later epoch, at the pre-state of slot 63,
+    takes that epoch as finalized (ForkChoice's anchor checkpoints) and
+    never makes the block head: its post-state's finalized epoch is 0
+    (the JAX package's chain does the same). Checks the head, its state
+    root (the block's and block_mainnet's), the store's block and state
+    and the fork-choice head. A fresh chain rejects the swapped copy and
+    keeps its anchor. Then SINGLES unaggregated attestations of slot 64,
+    signed on SIGN_WORKERS spawned processes, in one gossip batch
+    (verify_unaggregated_attestations): all verified and applied to fork
+    choice, then deduped; on a chain started from the imported block by
+    from_checkpoint, the same with one signed by the wrong key: the batch
+    fails and the per-set fallback keeps the other SINGLES - 1; on
+    another, submit_attestation_batch through the dispatcher: the same
+    verdicts. Last, each kernel of the path against its plain version at
+    the import's and the singles' shapes. Returns the rows and arguments
+    of both buckets, the hash kernels' rows, and the import to profile."""
+    import multiprocessing as mp
+
+    from lighthouse_tpu_torch.chain import beacon_chain as bc
+    from lighthouse_tpu_torch.chain.pubkey_cache import ValidatorPubkeyCache
+    from lighthouse_tpu_torch.crypto import bls
+    from lighthouse_tpu_torch.crypto.torchbls import backend as be
+    from lighthouse_tpu_torch.fork_choice.fork_choice import ForkChoice
+    from lighthouse_tpu_torch.state_transition import accessors as acc
+    from lighthouse_tpu_torch.state_transition import signature_sets as sigs
+    from lighthouse_tpu_torch.state_transition import slot as sl
+    from lighthouse_tpu_torch.store.hot_cold import HotColdDB
+    from lighthouse_tpu_torch.testing import block_fixtures as bf
+    from lighthouse_tpu_torch.torchhash import engine
+    from lighthouse_tpu_torch.torchhash import epoch_vectors as ev
+    from lighthouse_tpu_torch.torchhash import router
+    from lighthouse_tpu_torch.types import helpers as h
+    from lighthouse_tpu_torch.types.spec import DOMAIN_BEACON_ATTESTER
+    from lighthouse_tpu_torch.types.state_util import clone_state
+
+    spec, types, genesis, signed = fx.spec, fx.types, fx.genesis_state, fx.block
+    router.set_hash_backend("device")
+    bls.set_backend("torch")
+    backend = bls.get_backend()
+    slot = int(signed.message.slot)
+    root = types.BeaconBlock.hash_tree_root(signed.message)
+
+    def new_chain():
+        t = time.perf_counter()
+        chain = bc.BeaconChain(spec, clone_state(genesis, spec))
+        return chain, time.perf_counter() - t
+
+    def advance(chain):
+        """The state-advance timer in the slot before the block's."""
+        t = time.perf_counter()
+        chain.slot_clock.set_slot(slot - 1)
+        chain.per_slot_task()
+        if not chain.advance_head_state():
+            raise SystemExit("the chain's head state did not advance")
+        return time.perf_counter() - t
+
+    def checkpoint_chain(state):
+        """A chain started from the imported block and its post-state."""
+        t = time.perf_counter()
+        chain = bc.BeaconChain.from_checkpoint(spec, clone_state(state, spec), signed)
+        chain.slot_clock.set_slot(slot)
+        chain.per_slot_task()
+        return chain, time.perf_counter() - t
+
+    chain, init_s = new_chain()
+    if chain.genesis_block_root != bytes(signed.message.parent_root):
+        raise SystemExit("the chain's anchor root is not the block's parent root")
+
+    # every batch's sets, the device tree builds' leaves and the epoch leg's
+    # arrays (their callers wrapped: the kernel wrappers count launches)
+    captured = {"sets": [], "leaves": [], "epoch": []}
+
+    def capture(label, fn):
+        def wrapped(*args, **kwargs):
+            captured[label].append(list(args[0]) if label == "sets" else args)
+            return fn(*args, **kwargs)
+        return wrapped
+
+    def split_timer():
+        builders = ("block_proposal_set", "randao_set", "indexed_attestation_set",
+                    "sync_aggregate_set")
+        return CallTimer([(bc.BeaconChain, "_state_for_block", "state_for_block"),
+                          (bls, "verify_signature_sets", "batch_verify"),
+                          (backend, "marshal", "marshal"),
+                          (HotColdDB, "put_block", "store_writes"),
+                          (HotColdDB, "put_state", "store_writes"),
+                          (ForkChoice, "on_block", "fork_choice"),
+                          (bc.BeaconChain, "recompute_head", "fork_choice"),
+                          (ValidatorPubkeyCache, "import_new_pubkeys", "pubkey_import")]
+                         + [(sigs, name, "build_sets") for name in builders])
+
+    saved = (bls.verify_signature_sets, engine.device_build_levels, ev._device_altair_deltas)
+    bls.verify_signature_sets = capture("sets", saved[0])
+    engine.device_build_levels = capture("leaves", saved[1])
+    ev._device_altair_deltas = capture("epoch", saved[2])
+    routes_before, epoch_before = router.route_totals(), ev.epoch_totals()
+    walls, timers = {}, {"advance": CallTimer([(sl, "process_epoch", "epoch")]),
+                         "gossip_verify": split_timer(), "process_block": split_timer()}
+
+    def import_block():
+        with timers["advance"]:
+            walls["advance"] = advance(chain)
+        t = time.perf_counter()
+        chain.slot_clock.set_slot(slot)
+        chain.per_slot_task()
+        walls["per_slot_task"] = time.perf_counter() - t
+        with timers["gossip_verify"]:
+            t = time.perf_counter()
+            got = chain.verify_block_for_gossip(signed)
+            walls["gossip_verify"] = time.perf_counter() - t
+        with timers["process_block"]:
+            t = time.perf_counter()
+            chain.process_block(signed, block_root=got, proposal_already_verified=True)
+            walls["process_block"] = time.perf_counter() - t
+        return got
+
+    bls.Signature._CACHE.clear()             # the block's signatures as a node first sees them
+    try:
+        got, wall_s = drive("beacon_chain", BEACON_CHAIN_PATH, import_block)
+    finally:
+        bls.verify_signature_sets, engine.device_build_levels, ev._device_altair_deltas = saved
+    # the signers of the singles start beside the checks below (spawned,
+    # not forked: this process holds the card and its threads)
+    pool = mp.get_context("spawn").Pool(SIGN_WORKERS)
+    routes = {k: v - routes_before.get(k, 0) for k, v in router.route_totals().items()
+              if v != routes_before.get(k, 0)}
+    epochs = {k: v - epoch_before.get(k, 0) for k, v in ev.epoch_totals().items()}
+    import_sets = max(captured["sets"], key=len)
+    head = chain.head_state()
+    state_root = types.BeaconState.hash_tree_root(head)
+    t0 = time.perf_counter()
+    stored_block = chain.store.get_block(root, types)
+    stored_state = chain.store.get_state(state_root, types)
+    store_ok = (stored_block is not None and stored_state is not None
+                and types.SignedBeaconBlock.serialize(stored_block)
+                == types.SignedBeaconBlock.serialize(signed)
+                and types.BeaconState.hash_tree_root(stored_state) == state_root)
+    store_read_s = time.perf_counter() - t0
+
+    def split_of(name):
+        T = timers[name].seconds
+        parts = {k: T.get(k, 0.0) for k in ("state_for_block", "build_sets", "batch_verify",
+                                            "marshal", "store_writes", "fork_choice",
+                                            "pubkey_import")}
+        parts["dispatch_to_verdict"] = parts["batch_verify"] - parts["marshal"]
+        parts["rest"] = walls[name] - sum(parts[k] for k in (
+            "state_for_block", "build_sets", "batch_verify", "store_writes", "fork_choice",
+            "pubkey_import"))
+        return {"wall": walls[name], **parts}
+
+    checks = {"got_is_block_root": got == root, "head_is_block": chain.head_root == root,
+              "fork_choice_head": chain.fork_choice.get_head() == root,
+              "state_root_is_blocks": state_root == bytes(signed.message.state_root),
+              "state_root_is_block_mainnets": state_root == post_root,
+              "store_returns_block_and_state": store_ok,
+              "two_batches": [len(x) for x in captured["sets"]] == [1, CHAIN_SETS],
+              "bucket": be.padding_bucket(len(import_sets), max(
+                  len(x.signing_keys) for x in import_sets)) == BLOCK_BUCKET,
+              "device_ok_routes": routes.get("device/ok", 0) > 0,
+              "no_device_error": not routes.get("host/device_error"),
+              "epoch_device_ok": epochs.get("ok", 0) >= 1 and not epochs.get("error")}
+
+    # the swapped copy on a fresh chain: rejected, the head stays at the anchor
+    fresh, fresh_s = new_chain()
+    fresh_advance_s = advance(fresh)
+    fresh.slot_clock.set_slot(slot)
+    fresh.per_slot_task()
+
+    def swapped_import():
+        try:
+            fresh.process_block(fx.swapped)
+        except bc.BlockError as e:
+            return str(e)
+        return None
+
+    swapped_error, swapped_s = drive("beacon_chain_swapped", MAIN_PATH, swapped_import)
+    swapped_root = types.BeaconBlock.hash_tree_root(fx.swapped.message)
+    checks.update(swapped_rejected=swapped_error == "block signature batch invalid",
+                  swapped_head_at_anchor=fresh.head_root == fresh.genesis_block_root,
+                  swapped_not_stored=not fresh.store.block_exists(swapped_root))
+    emit({"phase": "beacon_chain", "nvidia_smi": smi, "validators": len(genesis.validators),
+          "anchor_slot": chain.anchor_slot, "slot": slot, "sets": len(import_sets),
+          "bucket": list(be.padding_bucket(len(import_sets), 512)),
+          "chain_init_seconds": init_s, "path_seconds": wall_s,
+          "advance_seconds": walls["advance"],
+          "advance_epoch_seconds": timers["advance"].seconds.get("epoch", 0.0),
+          "import_seconds": walls["per_slot_task"] + walls["gossip_verify"] + walls["process_block"],
+          "per_slot_task_seconds": walls["per_slot_task"],
+          "split_seconds": {"gossip_verify": split_of("gossip_verify"),
+                            "process_block": split_of("process_block")},
+          "store_read_seconds": store_read_s, "swapped_error": swapped_error,
+          "swapped_seconds": swapped_s, "fresh_chain_init_seconds": fresh_s,
+          "fresh_advance_seconds": fresh_advance_s,
+          "routes": routes, "epoch_device_totals": epochs, "checks": checks,
+          "launches": launches["beacon_chain"]})
+    if not all(checks.values()):
+        raise SystemExit(f"the beacon_chain path failed its checks: {checks}")
+
+    # SINGLES unaggregated attestations of slot 64 for the head, one key
+    # each, and the SINGLES_BAD-th once more by the next validator's key
+    epoch = h.compute_epoch_at_slot(slot, spec)
+    cache = acc.build_committee_cache(head, spec, epoch)
+    domain = h.get_domain(head, spec, DOMAIN_BEACON_ATTESTER, epoch)
+    target = types.Checkpoint.make(epoch=epoch, root=root)
+    datas = [types.AttestationData.make(
+        slot=slot, index=c, beacon_block_root=root, source=head.current_justified_checkpoint,
+        target=target) for c in range(cache.committees_per_slot)]
+    members, jobs = [], []
+    for k in range(SINGLES):
+        c, pos = k % cache.committees_per_slot, k // cache.committees_per_slot
+        committee = cache.committee(slot, c)
+        members.append((c, pos, len(committee), committee[pos]))
+        jobs.append((fx.keypairs[committee[pos]].sk.scalar,
+                     h.compute_signing_root(types.AttestationData, datas[c], domain)))
+    wrong = (members[SINGLES_BAD][3] + 1) % len(fx.keypairs)
+    jobs.append((fx.keypairs[wrong].sk.scalar, jobs[SINGLES_BAD][1]))
+    t0 = time.perf_counter()
+    with pool:
+        signatures = pool.starmap(bf.sign_root, jobs, chunksize=1)
+    sign_s = time.perf_counter() - t0
+
+    def single(k, sig):
+        c, pos, size, _v = members[k]
+        return types.Attestation.make(aggregation_bits=[i == pos for i in range(size)],
+                                      data=datas[c], signature=sig)
+
+    singles = [single(k, signatures[k]) for k in range(SINGLES)]
+    bad = singles[:SINGLES_BAD] + [single(SINGLES_BAD, signatures[-1])] + singles[SINGLES_BAD + 1:]
+    want = [[v] for *_rest, v in members]
+
+    def verdicts(results):
+        return [(types.Attestation.hash_tree_root(a), list(i)) for a, i in results]
+
+    captured["sets"].clear()
+    bls.verify_signature_sets = capture("sets", saved[0])
+    a_timer = CallTimer([(bc.BeaconChain, "prepare_unaggregated_attestations", "prepare"),
+                         (bls, "verify_signature_sets", "batch_verify"),
+                         (backend, "marshal", "marshal"),
+                         (bc.BeaconChain, "complete_attestation_batch", "complete"),
+                         (bc.BeaconChain, "apply_attestation_to_fork_choice", "fork_choice")])
+
+    def attest():
+        with a_timer:
+            verified = chain.verify_unaggregated_attestations(singles)
+            for att, indices in verified:
+                chain.apply_attestation_to_fork_choice(att, indices)
+        t = time.perf_counter()
+        again = chain.verify_unaggregated_attestations(singles)
+        return verified, again, time.perf_counter() - t
+
+    try:
+        (verified, again, again_s), attest_s = drive("beacon_chain_attestations", MAIN_PATH, attest)
+        singles_sets = captured["sets"][0] if len(captured["sets"]) == 1 else []
+
+        # one signed by the wrong key, on a chain from the checkpoint: the
+        # per-set fallback keeps the others
+        captured["sets"].clear()
+        bad_chain, bad_init_s = checkpoint_chain(head)
+        kept, bad_s = drive("beacon_chain_bad_single", MAIN_PATH,
+                            lambda: bad_chain.verify_unaggregated_attestations(bad))
+        fallback = [len(x) for x in captured["sets"]]
+    finally:
+        bls.verify_signature_sets = saved[0]
+
+    # the dispatcher's path on another such chain
+    disp_chain, disp_init_s = checkpoint_chain(head)
+
+    def dispatched():
+        handle, continuation = disp_chain.submit_attestation_batch(singles)
+        ok = handle.result()
+        results, done = continuation(ok), []
+        repeat = disp_chain.submit_attestation_batch(singles, on_done=done.append)
+        return ok, results, repeat, done
+
+    (disp_ok, disp_results, disp_repeat, disp_done), disp_s = drive(
+        "beacon_chain_dispatcher", MAIN_PATH, dispatched)
+    T = a_timer.seconds
+    a_split = {"prepare": T.get("prepare", 0.0), "batch_verify": T.get("batch_verify", 0.0),
+               "marshal": T.get("marshal", 0.0),
+               "dispatch_to_verdict": T.get("batch_verify", 0.0) - T.get("marshal", 0.0),
+               "complete": T.get("complete", 0.0), "fork_choice": T.get("fork_choice", 0.0)}
+    singles_bucket = (be.padding_bucket(len(singles_sets), max(
+        len(x.signing_keys) for x in singles_sets)) if singles_sets else None)
+    a_checks = {"all_verified": [list(i) for _a, i in verified] == want,
+                "deduped": again == [],
+                "one_batch": len(singles_sets) == SINGLES,
+                "bad_kept_the_others": verdicts(kept) == verdicts(
+                    [(a, w) for k, (a, w) in enumerate(zip(singles, want)) if k != SINGLES_BAD]),
+                "bad_batch_then_per_set": fallback == [SINGLES] + [1] * SINGLES,
+                "dispatcher_batch_failed_not": disp_ok is True,
+                "dispatcher_same_verdicts": verdicts(disp_results) == verdicts(verified),
+                "dispatcher_deduped": disp_repeat is None and disp_done == [[]]}
+    emit({"phase": "beacon_chain_attestations", "nvidia_smi": smi, "singles": SINGLES,
+          "bucket": list(singles_bucket) if singles_bucket else None,
+          "sign_seconds": sign_s, "sign_workers": SIGN_WORKERS, "seconds": attest_s,
+          "split_seconds": a_split, "dedup_seconds": again_s, "verified": len(verified),
+          "bad": {"index": SINGLES_BAD, "kept": len(kept), "seconds": bad_s,
+                  "chain_init_seconds": bad_init_s, "batches": len(fallback)},
+          "dispatcher": {"verified": len(disp_results), "seconds": disp_s,
+                         "chain_init_seconds": disp_init_s},
+          "checks": a_checks, "launches": {p: launches[p] for p in (
+              "beacon_chain_attestations", "beacon_chain_bad_single", "beacon_chain_dispatcher")}})
+    if not all(a_checks.values()):
+        raise SystemExit(f"the beacon_chain attestation paths failed their checks: {a_checks}")
+
+    # each kernel of the path against its plain version at its shapes
+    rows, _own, args = check_kernels("beacon_chain", import_sets)
+    singles_rows, _own, singles_args = check_kernels("beacon_chain_singles", singles_sets)
+    hash_rows, _hash_args = block_path_hash_rows("beacon_chain", captured)
+
+    def profiled_chain_import():
+        """The import once more on a fresh chain (advanced to the block's
+        slot first), its signatures' cache cleared."""
+        c, _s = new_chain()
+        advance(c)
+        bls.Signature._CACHE.clear()
+
+        def run_import():
+            c.slot_clock.set_slot(slot)
+            c.per_slot_task()
+            c.process_block(signed, block_root=c.verify_block_for_gossip(signed),
+                            proposal_already_verified=True)
+        return run_import
+
+    return rows, args, singles_rows, singles_args, hash_rows, profiled_chain_import
 
 
 def main() -> int:
@@ -2321,9 +2684,16 @@ def run() -> int:
     ef_state_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     (checks["block_mainnet"], kernel_args["block_mainnet"], block_hash_rows, block_hash_args,
-     profiled_import) = block_mainnet_phase(drive, launches, check_kernels, smi, fixture_proc)
+     profiled_import, block_fx, block_post_root) = block_mainnet_phase(
+        drive, launches, check_kernels, smi, fixture_proc)
+    block_mainnet_s = time.perf_counter() - t0
+    # the same block and attestations through BeaconChain, on the fixture loaded above
+    t0 = time.perf_counter()
+    (checks["beacon_chain"], kernel_args["beacon_chain"], checks["beacon_chain_singles"],
+     kernel_args["beacon_chain_singles"], chain_hash_rows, profiled_chain_import) = (
+        beacon_chain_phase(drive, launches, check_kernels, smi, block_fx, block_post_root))
     emit({"phase": "block_phases_seconds", "ef_state": ef_state_s,
-          "block_mainnet": time.perf_counter() - t0})
+          "block_mainnet": block_mainnet_s, "beacon_chain": time.perf_counter() - t0})
 
     # the kernel line: the gossip path's numbers (the MSM kernels': the KZG
     # path's; the tree-hash and epoch kernels': their paths'), then each
@@ -2343,9 +2713,12 @@ def run() -> int:
         if name in checks["sync"]:
             table[name].update(sync=checks["sync"][name], urgent=checks["urgent"][name],
                                calibrate=checks["calibrate"][name],
-                               block_mainnet=checks["block_mainnet"][name])
+                               block_mainnet=checks["block_mainnet"][name],
+                               beacon_chain=checks["beacon_chain"][name],
+                               beacon_chain_singles=checks["beacon_chain_singles"][name])
         if name in block_hash_rows:
             table[name]["block_mainnet"] = block_hash_rows[name]
+            table[name]["beacon_chain"] = chain_hash_rows[name]
 
     # each kernel's device ms from the profiler (prepare's three launches
     # apart) on the stage data of each bucket, beside the CUDA-event ms of
@@ -2383,7 +2756,9 @@ def run() -> int:
         table[name]["block_mainnet"]["device_ms"] = d["kernel_ms"]
     emit_field_device_ms(field_cases)
     emit({"phase": "kzg_device_share", **device_share(kzg_verify)})
-    # last: the block import's long profiler session, so no short one follows it
+    # last: the block imports' long profiler sessions, so no short one follows them
+    emit({"phase": "beacon_chain_device_share", "nvidia_smi": smi,
+          **device_share(profiled_chain_import())})
     emit({"phase": "block_mainnet_device_share", "nvidia_smi": smi,
           **device_share(profiled_import())})
 

@@ -29,8 +29,8 @@ the import computes:
   - Each aggregate is signed once, by the sum mod r of its members' secret
     keys: (sum sk_i) * H(m) is the sum of the members' signatures.
 
-The build is seeded and deterministic. Its output (the pre-state and the
-block as SSZ, the public keys' affine points and the key base) is cached
+The build is seeded and deterministic. Its output (the genesis state, the
+pre-state and the block as SSZ, the public keys' affine points and the key base) is cached
 under build/block_fixtures/, so a second run skips the signing. Run `python -m lighthouse_tpu_torch.testing.block_fixtures`
 to build the cache (it touches no card: the hash backend is "host").
 """
@@ -58,6 +58,7 @@ class BlockFixture:
     spec: object
     types: object
     keypairs: list            # bls.Keypair of every validator
+    genesis_state: object     # the interop genesis state (slot 0)
     pre_state: object         # the state at PRE_SLOT
     block: object             # the signed block at BLOCK_SLOT
     swapped: object           # the same block, two attestations' signatures swapped
@@ -204,6 +205,7 @@ def build(n: int = N_VALIDATORS, seed: int = SEED, workers: int | None = None) -
     """Build the fixture from scratch (the hash backend as the caller set it)."""
     from ..state_transition.genesis import interop_genesis_state
     from ..state_transition.slot import process_slots, types_for_slot
+    from ..types.state_util import clone_state
 
     spec = _spec()
     types = types_for_slot(spec, BLOCK_SLOT)
@@ -211,12 +213,13 @@ def build(n: int = N_VALIDATORS, seed: int = SEED, workers: int | None = None) -
     keypairs = registry_keys(n, key_base(seed))
     seconds = {"keys": time.perf_counter() - t}
     t = time.perf_counter()
-    pre = interop_genesis_state(keypairs, GENESIS_TIME, spec)
+    genesis = interop_genesis_state(keypairs, GENESIS_TIME, spec)
+    pre = clone_state(genesis, spec)
     process_slots(pre, spec, PRE_SLOT)
     seconds["pre_state"] = time.perf_counter() - t
     signed, block_seconds = build_block(spec, keypairs, pre, workers)
-    return BlockFixture(spec, types, keypairs, pre, signed, swap_signatures(signed, types),
-                        {**seconds, **block_seconds})
+    return BlockFixture(spec, types, keypairs, genesis, pre, signed,
+                        swap_signatures(signed, types), {**seconds, **block_seconds})
 
 
 def swap_signatures(signed, types, i: int = 0, j: int = 1):
@@ -231,7 +234,13 @@ def swap_signatures(signed, types, i: int = 0, j: int = 1):
 
 def _cache_paths(n: int, seed: int) -> dict:
     stem = os.path.join(CACHE_DIR, f"n{n}_s{seed}_slot{BLOCK_SLOT}")
-    return {k: f"{stem}_{k}" for k in ("pre.ssz", "block.ssz", "points.bin", "meta.json")}
+    return {k: f"{stem}_{k}" for k in ("genesis.ssz", "pre.ssz", "block.ssz", "points.bin",
+                                        "meta.json")}
+
+
+def _read(path: str) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
 
 
 def _load_keys(path: str, base: int) -> list:
@@ -266,17 +275,18 @@ def load_or_build(n: int = N_VALIDATORS, seed: int = SEED,
         keypairs = _load_keys(paths["points.bin"], meta["base"])
         keys_s = time.perf_counter() - t
         t = time.perf_counter()
-        with open(paths["pre.ssz"], "rb") as f:
-            pre = types.BeaconState.deserialize(f.read())
-        with open(paths["block.ssz"], "rb") as f:
-            block = types.SignedBeaconBlock.deserialize(f.read())
-        return BlockFixture(spec, types, keypairs, pre, block, swap_signatures(block, types),
+        genesis, pre = (types.BeaconState.deserialize(_read(paths[k]))
+                        for k in ("genesis.ssz", "pre.ssz"))
+        block = types.SignedBeaconBlock.deserialize(_read(paths["block.ssz"]))
+        return BlockFixture(spec, types, keypairs, genesis, pre, block,
+                            swap_signatures(block, types),
                             {"keys": keys_s, "load": time.perf_counter() - t, "cached": True})
     fx = build(n, seed, workers)
     os.makedirs(CACHE_DIR, exist_ok=True)
     meta = json.dumps({"base": key_base(seed), "n": n, "seed": seed, "seconds": fx.seconds})
     points = (kp.pk.point for kp in fx.keypairs)
-    for key, data in (("pre.ssz", fx.types.BeaconState.serialize(fx.pre_state)),
+    for key, data in (("genesis.ssz", fx.types.BeaconState.serialize(fx.genesis_state)),
+                      ("pre.ssz", fx.types.BeaconState.serialize(fx.pre_state)),
                       ("block.ssz", fx.types.SignedBeaconBlock.serialize(fx.block)),
                       ("points.bin", b"".join(x.to_bytes(48, "big") + y.to_bytes(48, "big")
                                               for x, y in points)),

@@ -255,6 +255,25 @@ def test_import_and_cpu_verify_load_no_jax():
         "replayed = block_replayer.BlockReplayer(spec=hs.spec, state=genesis.interop_genesis_state(\n"
         "    hs.keypairs, hs.genesis_time, hs.spec), verify_state_roots=True).apply_blocks(blocks)\n"
         "assert replayed.slot == 2\n"
+        "from lighthouse_tpu_torch.chain import (beacon_chain, caches, data_availability,\n"
+        "    naive_aggregation, pubkey_cache, validator_monitor)\n"
+        "from lighthouse_tpu_torch.store import hot_cold, kv, metadata\n"
+        "from lighthouse_tpu_torch.utils import slot_clock\n"
+        "from lighthouse_tpu_torch.ssz import proof\n"
+        "from lighthouse_tpu_torch.execution import engine_api\n"
+        "from lighthouse_tpu_torch.slasher import slasher\n"
+        "from lighthouse_tpu_torch import loadgen\n"
+        "from lighthouse_tpu_torch.loadgen import scenarios, state_root\n"
+        "assert loadgen.get_scenario is scenarios.get_scenario\n"
+        "chain = beacon_chain.BeaconChain(hs.spec, genesis.interop_genesis_state(\n"
+        "    hs.keypairs, hs.genesis_time, hs.spec))\n"
+        "chain.slot_clock.set_slot(2)\n"
+        "assert chain.process_chain_segment(blocks)[-1] == chain.head_root\n"
+        "assert chain.head_state().slot == 2 and len(chain.pubkey_cache) == 8\n"
+        "assert chain.pubkey_cache.mont_coords(7)[1].shape == (24,)\n"
+        "rep = state_root.run_state_root_scenario(scenarios.get_state_root_scenario(\n"
+        "    'state_root', n_validators=64, slots=2))\n"
+        "assert rep['conservation']['ok'] and rep['roots'] == 3, rep\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'lighthouse_tpu.'))"
         " or m == 'lighthouse_tpu']\n"
         "assert not bad, bad\n"
