@@ -114,7 +114,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
      and its share of its bound, none above 1;
  11. ef_state: the 168 EF cases under tests/ef/vectors/minimal but
      ssz_static (156 state-transition cases, 12 shuffling) through the
-     port's ef_runner on "torch" with real signatures, in 4 worker
+     port's ef_runner on "torch" with real signatures, in 8 worker
      processes: each must pass, the path kernels must launch;
  12. block_mainnet: testing/block_fixtures.py's block (the mainnet preset
      with deneb from genesis, 2^14 validators, the block at slot 64 with
@@ -147,7 +147,28 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
      writes, fork choice); every kernel of the path against its plain
      version at (256, 512) and (64, 1), the ladder and epoch_deltas at the
      path's widths;
- 14. each kernel's device time from torch.profiler at the four buckets
+ 14. beacon_processor: on the same fixture, block and singles: the 64
+     singles published as snappy-compressed SSZ on their attestation
+     subnets through network/gossip.py's InProcessGossipRouter into a
+     BeaconProcessor (its workers started, an AdmissionController on the
+     chain's clock; the capacity scheduler forms the batches) whose batch
+     runner is submit_attestation_batch on a chain started from the block,
+     the verified singles into fork choice and an OperationPool: all 64
+     processed and verified, none dropped, expired or shed, no processor
+     error; the copy with the bad single through run_until_idle on a fresh
+     chain: the batch fails and the per-set fallback keeps 63, only they
+     reach the pool; observability.pipeline.run_probe and every pipeline
+     stage in snapshot(); produce_block at slot 65 from the pool (the
+     RANDAO reveal and the block signed in-process): its attestations
+     cover exactly the 64 validators; its import through per_slot_task,
+     verify_block_for_gossip and process_block on a chain over HotColdDB on
+     two NativeKVStores (the g++ build, not the fallback), anchored at
+     genesis: the head, its state root, the stored block, fsck_datadir
+     clean after persist; the batches' sizes, the scheduler's decisions,
+     the queue waits and the walls split; every BLS path kernel against
+     its plain version at each bucket the phase ran that no earlier phase
+     held, the ladder at its widths;
+ 15. each kernel's device time from torch.profiler at the four buckets
      and (256, 512) (prepare's three launches apart), beside phase 3's
      CUDA-event times, which take in the host's time where a wrapper's
      Python outlasts its kernel, and the gossip bucket's sums per stage
@@ -155,7 +176,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
      path's full width; fq_mont_mul's at each size of the field phase;
      the tree-hash and epoch kernels' at their paths' width and the block
      path's; the card's busy share of one KZG batch verify; last, of one
-     more import through BeaconChain and one more through
+     more import through BeaconChain, of the produced block's through
+     BeaconChain on the native store and of one more through
      state_transition (their signatures' cache cleared).
 The last two lines are the kernel table and the device line. To time
 another checkout's kernels with this script, copy it into that checkout's
@@ -220,7 +242,9 @@ CALIBRATE_PATH = MAIN_PATH + ("msm_varying", "sha256_ladder")
 # the EF state-transition vectors (every case under minimal but ssz_static)
 # on "torch", in worker processes of their own
 EF_STATE_ROOT = os.path.join(ROOT, "tests", "ef", "vectors")
-EF_STATE_CASES, EF_STATE_WORKERS = 168, 4    # 156 state-transition cases and 12 shuffling
+# 156 state-transition cases and 12 shuffling, in a process for each of the
+# host's 8 cores (the script's own process waits meanwhile)
+EF_STATE_CASES, EF_STATE_WORKERS = 168, 8
 # block import at mainnet width (testing/block_fixtures.py): 2^14
 # validators, 128 attestations of 128 keys, the 512-key sync aggregate,
 # the proposer signature and the RANDAO reveal in one batch verify
@@ -233,6 +257,10 @@ FIXTURE_WAIT_S = 900              # the block fixture's build, started with the 
 # key each, 16 of each of the slot's 4 committees), signed on SIGN_WORKERS
 # processes; the SINGLES_BAD-th signed by the wrong key in a second batch
 BEACON_CHAIN_PATH = MAIN_PATH + ("sha256_ladder", "epoch_deltas")
+PROCESSOR_PATH = MAIN_PATH + ("sha256_ladder",)
+PRODUCE_PATH = ("sha256_ladder",)  # produce_block: the post-state root, no signature check
+PROCESSOR_DRAIN_S = 300           # the live processor's drain: 64 decompressions, at most
+PROBE_ITEMS = 8                   # observability.pipeline.run_probe's batch
 CHAIN_SETS, SINGLES, SINGLES_BAD, SIGN_WORKERS = 130, 64, 17, 8
 
 # 32-bit instructions of one SHA-256 compression as csrc/sha256.cu writes
@@ -1776,8 +1804,9 @@ def ef_state_phase(launches) -> None:
 def block_path_hash_rows(path: str, captured) -> tuple[dict, dict]:
     """sha256_ladder at each width the block path's device tree builds
     hashed (`captured["leaves"]`, the widest first) and epoch_deltas on the
-    epoch leg's inputs (`captured["epoch"]`), against their plain versions
-    on the card. Returns the rows (the widest ladder) and their arguments."""
+    epoch leg's inputs (`captured["epoch"]`, where the path ran it), against
+    their plain versions on the card. Returns the rows (the widest ladder)
+    and their arguments."""
     import numpy as np
     import torch
 
@@ -1796,6 +1825,8 @@ def block_path_hash_rows(path: str, captured) -> tuple[dict, dict]:
                               32 * (n + nodes), 5)
         hash_rows.setdefault("sha256_ladder", row)
         hash_args.setdefault("sha256_ladder", a)
+    if not captured["epoch"]:                 # a path that crossed no epoch boundary
+        return hash_rows, hash_args
     _n, eff, part_masks, eligible, target, scores, *scalars = captured["epoch"][0]
     e = ev.kernel_inputs(engine.device(), eff, part_masks, eligible, target, scores) + tuple(
         scalars)
@@ -1962,7 +1993,9 @@ def beacon_chain_phase(drive, launches, check_kernels, smi, fx, post_root):
     another, submit_attestation_batch through the dispatcher: the same
     verdicts. Last, each kernel of the path against its plain version at
     the import's and the singles' shapes. Returns the rows and arguments
-    of both buckets, the hash kernels' rows, and the import to profile."""
+    of both buckets, the hash kernels' rows, the import to profile, and
+    what the beacon_processor phase reuses: the head state, the singles,
+    the copy with the bad one and their validators."""
     import multiprocessing as mp
 
     from lighthouse_tpu_torch.chain import beacon_chain as bc
@@ -2271,7 +2304,494 @@ def beacon_chain_phase(drive, launches, check_kernels, smi, fx, post_root):
                             proposal_already_verified=True)
         return run_import
 
-    return rows, args, singles_rows, singles_args, hash_rows, profiled_chain_import
+    handoff = {"head": head, "singles": singles, "bad": bad,
+               "validators": [v for *_rest, v in members]}
+    return rows, args, singles_rows, singles_args, hash_rows, profiled_chain_import, handoff
+
+
+def beacon_processor_phase(drive, launches, check_kernels, checked_buckets, smi, fx, handoff):
+    """Gossip attestations the way a node takes them, on "torch" and the
+    "device" hash backend, on beacon_chain's fixture, imported block and
+    singles (the signatures' cache cleared first, so the first pass
+    decompresses them as a node first does; later passes reuse it):
+
+    1. live: a chain from the imported block (from_checkpoint) with an
+       OperationPool; a BeaconProcessor behind an AdmissionController on
+       the chain's clock, its workers started; each single published as
+       snappy-compressed SSZ on its attestation subnet through the
+       InProcessGossipRouter; the subscriber submits a WorkItem with the
+       admission deadline whose batch runner is one
+       submit_attestation_batch, its continuation putting the verified
+       ones in the pool; drain, stop. All processed, none dropped, expired
+       or shed, every verdict true, the votes in fork choice, the pool
+       holding all, no processor error;
+    2. the copy with one single signed by a wrong key on a fresh chain,
+       run_until_idle: the batch fails, the per-set fallback (on the card)
+       keeps the other SINGLES - 1, and only those reach the pool;
+    3. observability.pipeline.run_probe: its count, every pipeline stage
+       in snapshot()["stages"];
+    4. produce_block at the next slot on pass 1's chain and pool, the
+       RANDAO reveal and the block signed in-process by the proposer's key:
+       its attestations cover exactly the singles' validators;
+    5. the signed block imported through per_slot_task,
+       verify_block_for_gossip and process_block by a chain on HotColdDB
+       over two NativeKVStores (the g++ build, not the pure-Python
+       fallback), anchored at genesis and past the fixture's block
+       (genesis_native_chain): the head, its state root, the stored block,
+       and fsck_datadir clean after the chain persists.
+    Each pass is driven with the launch counts reset; every kernel of
+    PROCESSOR_PATH launched in the phase. Then each path kernel against its
+    plain version at every bucket the phase's batches ran that no earlier
+    phase held (`checked_buckets`), and the ladder at the widths it hashed.
+    Returns those rows by bucket, the ladder's rows and the import to
+    profile."""
+    import atexit
+    import shutil
+    import tempfile
+
+    from lighthouse_tpu_torch import observability
+    from lighthouse_tpu_torch.chain import beacon_chain as bc
+    from lighthouse_tpu_torch.chain import beacon_processor as bp
+    from lighthouse_tpu_torch.chain.op_pool import OperationPool
+    from lighthouse_tpu_torch.crypto import bls
+    from lighthouse_tpu_torch.crypto.bls381 import serde
+    from lighthouse_tpu_torch.crypto.torchbls import backend as be
+    from lighthouse_tpu_torch.fork_choice.fork_choice import ForkChoice
+    from lighthouse_tpu_torch.network import gossip, snappy
+    from lighthouse_tpu_torch.observability import pipeline, trace
+    from lighthouse_tpu_torch.qos.admission import AdmissionController
+    from lighthouse_tpu_torch.ssz.core import uint64
+    from lighthouse_tpu_torch.state_transition import accessors as acc
+    from lighthouse_tpu_torch.state_transition import signature_sets as sigs
+    from lighthouse_tpu_torch.state_transition import slot as sl
+    from lighthouse_tpu_torch.store import doctor, native_kv
+    from lighthouse_tpu_torch.store.hot_cold import HotColdDB
+    from lighthouse_tpu_torch.testing import block_fixtures as bf
+    from lighthouse_tpu_torch.torchhash import engine
+    from lighthouse_tpu_torch.torchhash import epoch_vectors as ev
+    from lighthouse_tpu_torch.torchhash import router
+    from lighthouse_tpu_torch.types import helpers as h
+    from lighthouse_tpu_torch.types.spec import DOMAIN_BEACON_PROPOSER, DOMAIN_RANDAO
+    from lighthouse_tpu_torch.types.state_util import clone_state
+
+    spec, signed = fx.spec, fx.block
+    head, singles, bad = handoff["head"], handoff["singles"], handoff["bad"]
+    validators = sorted(handoff["validators"])
+    router.set_hash_backend("device")
+    bls.set_backend("torch")
+    backend = bls.get_backend()
+    slot = int(signed.message.slot)
+    root = fx.types.BeaconBlock.hash_tree_root(signed.message)
+    kind = bp.WorkKind.gossip_attestation
+    digest = h.compute_fork_digest(spec.fork_version(spec.fork_name_at_slot(slot)),
+                                   bytes(head.genesis_validators_root))
+
+    def checkpoint_chain(**kw):
+        """A chain started from the imported block and its post-state."""
+        t = time.perf_counter()
+        chain = bc.BeaconChain.from_checkpoint(spec, clone_state(head, spec), signed, **kw)
+        chain.slot_clock.set_slot(slot)
+        chain.per_slot_task()
+        return chain, time.perf_counter() - t
+
+    # every batch's sets, and the device tree builds' leaves and the epoch
+    # leg's arrays (their callers wrapped: the kernel wrappers count launches)
+    captured = {"sets": [], "leaves": [], "epoch": []}
+
+    def capture(label, fn):
+        def wrapped(*args, **kwargs):
+            captured[label].append(list(args[0]) if label == "sets" else args)
+            return fn(*args, **kwargs)
+        return wrapped
+
+    def errors():
+        return {key: child.value for key, child in bp._ERRORS.children()}
+
+    def genesis_native_chain(datadir):
+        """A chain on HotColdDB over two NativeKVStores in datadir, anchored
+        at the fixture's genesis, then the imported block imported. A chain
+        from the checkpoint would not do: its anchor's epoch is taken as
+        finalized, and a block whose post-state finalized epoch 0 never
+        becomes head (in the JAX package's chain too). The state-advance
+        timer's entry for the genesis head is the fixture's pre-state (the
+        genesis state advanced through the empty slots) advanced one slot:
+        the state advance_head_state computes, without its 63 slots again."""
+        t0 = time.perf_counter()
+        stores = tuple(native_kv.NativeKVStore(os.path.join(datadir, name))
+                       for name in doctor.DB_FILES)
+        c = bc.BeaconChain(spec, clone_state(fx.genesis_state, spec),
+                           store=HotColdDB(spec, hot=stores[0], cold=stores[1]))
+        t1 = time.perf_counter()
+        advanced = clone_state(fx.pre_state, spec)
+        sl.process_slots(advanced, spec, slot)
+        c._advanced = {c.genesis_block_root: advanced}
+        t2 = time.perf_counter()
+        c.slot_clock.set_slot(slot)
+        c.per_slot_task()
+        c.process_block(signed, block_root=c.verify_block_for_gossip(signed),
+                        proposal_already_verified=True)
+        if c.head_root != root:
+            raise SystemExit("the native chain did not import the fixture's block")
+        return c, stores, {"open_and_anchor": t1 - t0, "advance": t2 - t1,
+                           "import_parent": time.perf_counter() - t2}
+
+    def gossip_into(chain, proc, pool, atts, oks, verified, settled):
+        """node.py's attestation handler and batch runner, without
+        gossipsub: publish each single on its subnet; the subscriber
+        deserialises it and submits a WorkItem with its deadline; the
+        runner makes one submit_attestation_batch whose continuation
+        records the verdict and puts the verified ones in the pool.
+        `settled` counts the singles whose batch has come to an end."""
+        types = sl.types_for_slot(spec, chain.current_slot)
+        cps = acc.build_committee_cache(chain.head_state(), spec,
+                                        h.compute_epoch_at_slot(slot, spec)).committees_per_slot
+        net, topics = gossip.InProcessGossipRouter(), set()
+
+        def run_batch(payloads):
+            def on_done(results):
+                for att, indices in results:
+                    pool.insert_attestation(att, indices, types)
+                verified.extend(results)
+
+            pair = chain.submit_attestation_batch(list(payloads), on_done=on_done)
+            if pair is None:
+                settled.append(len(payloads))
+                return None
+            handle, cont = pair
+
+            def continuation(ok):
+                oks.append(ok)
+                try:
+                    return cont(ok)
+                finally:
+                    settled.append(len(payloads))
+            return handle, continuation
+
+        def on_attestation(msg):
+            try:
+                att = types.Attestation.deserialize(snappy.decompress(msg.payload))
+            except Exception:
+                return False
+            return proc.submit(bp.WorkItem(
+                kind=kind, payload=att, run_batch=run_batch,
+                deadline_slot=proc.admission.attestation_deadline_slot(att.data.slot)))
+
+        t = time.perf_counter()
+        for att in atts:
+            topic = gossip.attestation_subnet_topic(digest, gossip.compute_subnet_for_attestation(
+                cps, int(att.data.slot), int(att.data.index), spec))
+            if topic not in topics:
+                topics.add(topic)
+                net.subscribe("node", topic, on_attestation)
+            net.publish("peer", topic, types.Attestation.serialize(att))
+        return net, len(topics), t
+
+    def batch_traces(before):
+        """The processor's traces completed since `before`: their sizes and
+        the seconds of each pipeline stage."""
+        ring = trace.TRACER.snapshot_ring()
+        done = ring[len(ring) - min(len(ring), trace.TRACER.completed - before):]
+        return [{"kind": tr.kind, "items": tr.n_items,
+                 **{name: t1 - t0 for name, t0, t1, _a in tr.spans}} for tr in done
+                if tr.kind == kind.name]
+
+    def split_timer(extra=()):
+        return CallTimer([(serde, "g2_decompress", "decompress"),
+                          (bc.BeaconChain, "prepare_unaggregated_attestations", "prepare"),
+                          (backend, "marshal", "marshal"),
+                          (bls, "verify_signature_sets", "batch_verify"),
+                          (bc.BeaconChain, "_state_for_block", "state_for_block"),
+                          (HotColdDB, "put_block", "store_writes"),
+                          (HotColdDB, "put_state", "store_writes"),
+                          (ForkChoice, "on_block", "fork_choice"),
+                          (bc.BeaconChain, "recompute_head", "fork_choice")] + list(extra))
+
+    saved = (bls.verify_signature_sets, bls.verify_signature_sets_async,
+             engine.device_build_levels, ev._device_altair_deltas)
+    bls.verify_signature_sets = capture("sets", saved[0])
+    bls.verify_signature_sets_async = capture("sets", saved[1])
+    engine.device_build_levels = capture("leaves", saved[2])
+    ev._device_altair_deltas = capture("epoch", saved[3])
+    out, tmp = {}, tempfile.mkdtemp(prefix="beacon-processor-")
+    atexit.register(shutil.rmtree, tmp, True)
+    try:
+        # the import's chain on a native store, built first: the imported
+        # block's signatures are still cached
+        native_chain = genesis_native_chain(os.path.join(tmp, "import"))
+        for got in captured.values():         # their batches are not this phase's
+            got.clear()
+        bls.Signature._CACHE.clear()          # the singles as a node first sees them
+
+        # 1. live: the workers started, the singles published, drain, stop
+        chain, init_s = checkpoint_chain()
+        pool = OperationPool(spec)
+        proc = bp.BeaconProcessor(bp.BeaconProcessorConfig(),
+                                  admission=AdmissionController(chain.slot_clock))
+        errors_before, traces_before = errors(), trace.TRACER.completed
+        oks, verified, settled, timer = [], [], [], split_timer()
+
+        def live():
+            proc.start()
+            try:
+                with timer:
+                    net, subnets, t = gossip_into(chain, proc, pool, singles, oks, verified,
+                                                  settled)
+                    drained = proc.drain(timeout=PROCESSOR_DRAIN_S)
+                    # drain() returns once the queues and the in-flight
+                    # window are empty, which a worker still running a
+                    # batch's runner is neither in: wait for every batch's end
+                    while sum(settled) < net.delivered or not proc.queues_empty():
+                        if time.perf_counter() - t > PROCESSOR_DRAIN_S:
+                            break
+                        time.sleep(0.005)
+                    wall = time.perf_counter() - t
+            finally:
+                proc.stop()
+            return net, subnets, drained, wall
+
+        (net, subnets, drained, live_wall), live_s = drive("beacon_processor", MAIN_PATH, live)
+        stats = proc.stats()
+        traces = batch_traces(traces_before)
+        q = chain.fork_choice._queued
+        queued_votes = sorted(i for a in q for i in a.attesting_indices)
+        T = timer.seconds
+        pooled = sorted(i for bucket in pool.attestations.values() for e in bucket
+                        for i in e.attesting_indices)
+        live_checks = {
+            "published": net.delivered == len(singles),
+            "processed": stats["processed"] == {kind.name: len(singles)},
+            "none_dropped_expired_shed": not (stats["dropped"] or stats["expired"]
+                                              or stats["shed_admission"]),
+            "drained": bool(drained) and proc.queues_empty() and sum(settled) == len(singles),
+            "every_verdict_true": bool(oks) and all(oks) and len(oks) == len(traces),
+            "all_verified": sorted(i for _a, (i,) in verified) == validators,
+            "votes_queued_in_fork_choice": queued_votes == validators,
+            "pool_holds_all": pooled == validators,
+            "no_processor_error": errors() == errors_before,
+        }
+        out["live"] = {
+            "chain_init_seconds": init_s, "path_seconds": live_s, "subnets": subnets,
+            "workers": proc.config.num_workers, "max_inflight": proc.config.max_inflight,
+            "batches": [t["items"] for t in traces], "batches_formed": stats["batches_formed"],
+            "pipelined_batches": stats["pipelined_batches"],
+            "scheduler": {k: stats["scheduler"][k] for k in ("caps", "decisions", "model")},
+            "queue_wait_seconds": [t.get("enqueue") for t in traces],
+            "stage_seconds": {s: sum(t.get(s, 0.0) for t in traces)
+                              for s in trace.PIPELINE_STAGES},
+            "wall_seconds": live_wall,
+            "split_seconds": {"decompress": T.get("decompress", 0.0),
+                              "prepare": T.get("prepare", 0.0),
+                              "marshal": T.get("marshal", 0.0),
+                              "dispatch_to_verdict": sum(t.get("device", 0.0) for t in traces)},
+            "checks": live_checks}
+
+        # 2. the bad single, deterministic mode, on a fresh chain
+        chain2, init2_s = checkpoint_chain()
+        pool2 = OperationPool(spec)
+        proc2 = bp.BeaconProcessor(bp.BeaconProcessorConfig(),
+                                   admission=AdmissionController(chain2.slot_clock))
+        oks2, verified2, n_sets = [], [], len(captured["sets"])
+
+        def bad_pass():
+            net2, _subnets, _t = gossip_into(chain2, proc2, pool2, bad, oks2, verified2, [])
+            return net2, proc2.run_until_idle()
+
+        (net2, executed2), bad_s = drive("beacon_processor_bad_single", MAIN_PATH, bad_pass)
+        bad_validator = validators.index(handoff["validators"][SINGLES_BAD])
+        kept = sorted(i for _a, (i,) in verified2)
+        pooled2 = sorted(i for b in pool2.attestations.values() for e in b
+                         for i in e.attesting_indices)
+        fallback = [len(x) for x in captured["sets"][n_sets:]]
+        out["bad_single"] = {
+            "chain_init_seconds": init2_s, "seconds": bad_s, "executed": executed2,
+            "kept": len(kept), "batches": fallback[:1], "per_set_verifies": len(fallback) - 1,
+            "signature_cache": "reused (the bad single's one signature decompressed anew)",
+            "checks": {"batch_failed": oks2 == [False],
+                       "kept_the_others": kept == validators[:bad_validator]
+                       + validators[bad_validator + 1:],
+                       "pool_holds_only_those": pooled2 == kept,
+                       "batch_then_per_set": fallback == [SINGLES] + [1] * SINGLES,
+                       "processed": proc2.stats()["processed"] == {kind.name: SINGLES},
+                       "no_processor_error": errors() == errors_before}}
+
+        # 3. the probe
+        n_sets = len(captured["sets"])
+        executed3, probe_s = drive("beacon_processor_probe", MAIN_PATH,
+                                   lambda: pipeline.run_probe(PROBE_ITEMS))
+        snap = observability.snapshot()
+        out["probe"] = {"executed": executed3, "seconds": probe_s, "stages": snap["stages"],
+                        "batches": [len(x) for x in captured["sets"][n_sets:]],
+                        "checks": {"executed": executed3 >= 1,
+                                   "every_stage": snap["stages"] == list(trace.PIPELINE_STAGES)}}
+
+        # 4. produce_block at the next slot on pass 1's chain and pool
+        next_slot = slot + 1
+        chain.slot_clock.set_slot(next_slot)
+        chain.per_slot_task()
+        votes = chain.fork_choice.proto.votes
+        votes_applied = all(v < len(votes) and votes[v].next_root == root for v in validators)
+        t0 = time.perf_counter()
+        st = clone_state(chain.head_state(), spec)
+        sl.process_slots(st, spec, next_slot)
+        proposer = acc.get_beacon_proposer_index(st, spec)
+        epoch = h.compute_epoch_at_slot(next_slot, spec)
+        sk = fx.keypairs[proposer].sk.scalar
+        reveal = bf.sign_root(sk, h.compute_signing_root(
+            uint64, epoch, h.get_domain(st, spec, DOMAIN_RANDAO, epoch)))
+        reveal_s = time.perf_counter() - t0
+        produce_timer = CallTimer([
+            (bc.BeaconChain, "_state_for_block", "state_advance"),
+            (OperationPool, "get_attestations_for_block", "packing"),
+            (OperationPool, "get_slashings_and_exits", "packing"),
+            (bc, "per_block_processing", "block_processing")])
+
+        def produce():
+            with produce_timer:
+                return chain.produce_block(next_slot, reveal, op_pool=pool)
+
+        block, produce_s = drive("beacon_processor_produce", PRODUCE_PATH, produce)
+        types = sl.types_for_slot(spec, next_slot)
+        t0 = time.perf_counter()
+        block_sig = bf.sign_root(sk, h.compute_signing_root(
+            types.BeaconBlock, block, h.get_domain(st, spec, DOMAIN_BEACON_PROPOSER, epoch)))
+        sign_s = time.perf_counter() - t0
+        produced = types.SignedBeaconBlock.make(message=block, signature=block_sig)
+        packed = sorted(i for a in block.body.attestations
+                        for i in acc.get_attesting_indices(st, spec, a.data, a.aggregation_bits))
+        P = produce_timer.seconds
+        out["produce"] = {
+            "slot": next_slot, "proposer": proposer, "attestations": len(block.body.attestations),
+            "seconds": produce_s, "randao_sign_seconds": reveal_s,
+            "block_sign_seconds": sign_s,
+            "split_seconds": {"state_advance": P.get("state_advance", 0.0),
+                              "packing": P.get("packing", 0.0),
+                              "block_processing": P.get("block_processing", 0.0),
+                              "post_state_root_and_rest": produce_s - sum(P.values())},
+            "checks": {"votes_applied": votes_applied, "packs_the_singles": packed == validators,
+                       "proposer_matches": int(block.proposer_index) == proposer}}
+
+        # 5. the produced block's import over the native store
+        chain3, (hot, cold), setup3 = native_chain
+        n_sets = len(captured["sets"])
+        produced_root = types.BeaconBlock.hash_tree_root(block)
+        walls, import_timer = {}, split_timer(
+            [(sigs, name, "build_sets") for name in (
+                "block_proposal_set", "randao_set", "indexed_attestation_set",
+                "sync_aggregate_set")])
+
+        def import_produced():
+            t = time.perf_counter()
+            chain3.slot_clock.set_slot(next_slot)
+            chain3.per_slot_task()
+            walls["per_slot_task"] = time.perf_counter() - t
+            with import_timer:
+                t = time.perf_counter()
+                got = chain3.verify_block_for_gossip(produced)
+                walls["gossip_verify"] = time.perf_counter() - t
+                t = time.perf_counter()
+                chain3.process_block(produced, block_root=got, proposal_already_verified=True)
+                walls["process_block"] = time.perf_counter() - t
+            return got
+
+        got, import_s = drive("beacon_processor_import", PROCESSOR_PATH, import_produced)
+        import_sets = max(captured["sets"][n_sets:], key=len)
+        head3 = chain3.head_state()
+        t0 = time.perf_counter()
+        chain3.persist()
+        persist_s = time.perf_counter() - t0
+        stored = chain3.store.get_block(produced_root, types)
+        report = doctor.fsck_datadir(os.path.join(tmp, "import"))
+        I = import_timer.seconds
+        out["import"] = {
+            "seconds": import_s, "walls": walls, "chain_setup_seconds": setup3,
+            "sets": len(import_sets), "bucket": list(be.padding_bucket(
+                len(import_sets), max(len(x.signing_keys) for x in import_sets))),
+            "split_seconds": {**{k: I.get(k, 0.0) for k in (
+                "decompress", "build_sets", "marshal", "batch_verify", "state_for_block",
+                "store_writes", "fork_choice")},
+                "dispatch_to_verdict": I.get("batch_verify", 0.0) - I.get("marshal", 0.0)},
+            "native_store": {"engine": type(hot).__name__, "build": dict(native_kv.BUILD_INFO),
+                             "library": os.path.relpath(str(native_kv._lib_path()), ROOT),
+                             "persist_seconds": persist_s,
+                             "log_bytes": {n: os.path.getsize(os.path.join(tmp, "import", n))
+                                           for n in doctor.DB_FILES}},
+            "doctor": {"ok": report["ok"], "problems": report["problems"],
+                       "records": {n: v["records"] for n, v in report["logs"].items()},
+                       "anchor": report["anchor"]},
+            "checks": {"got_is_block_root": got == produced_root,
+                       "head_is_block": chain3.head_root == produced_root,
+                       "state_root_is_blocks": types.BeaconState.hash_tree_root(head3)
+                       == bytes(block.state_root),
+                       "store_returns_block": stored is not None
+                       and types.SignedBeaconBlock.serialize(stored)
+                       == types.SignedBeaconBlock.serialize(produced),
+                       "native_not_degraded": type(hot) is native_kv.NativeKVStore
+                       and type(cold) is native_kv.NativeKVStore
+                       and not native_kv._fallback_warned,
+                       "doctor_clean": report["ok"] and not report["problems"]
+                       and report["anchor"].get("complete") is True}}
+        hot.close()
+        cold.close()
+    finally:
+        (bls.verify_signature_sets, bls.verify_signature_sets_async, engine.device_build_levels,
+         ev._device_altair_deltas) = saved
+
+    paths = ("beacon_processor", "beacon_processor_bad_single", "beacon_processor_probe",
+             "beacon_processor_produce", "beacon_processor_import")
+    phase_launches = {name: sum(launches[p][name] for p in paths) for name in launches[paths[0]]}
+    missing = [k for k in PROCESSOR_PATH if not phase_launches[k]]
+    emit({"phase": "beacon_processor", "nvidia_smi": smi, "validators": len(head.validators),
+          "singles": len(singles), **out,
+          "epoch_deltas_launches": phase_launches["epoch_deltas"],
+          "launches": {p: {k: v for k, v in launches[p].items() if v} for p in paths}})
+    failed = {f"{part}.{name}" for part, o in out.items()
+              for name, ok in o.get("checks", {}).items() if not ok}
+    if failed or missing:
+        raise SystemExit(f"the beacon_processor path failed {sorted(failed)}; "
+                         f"kernels not launched: {missing}")
+
+    # each kernel of the path against its plain version at every bucket
+    # the phase's batches ran (the first batch of each), and the ladder at
+    # every width the phase hashed
+    by_bucket = {}
+    for sets in captured["sets"]:
+        key = be.padding_bucket(len(sets), max(len(x.signing_keys) for x in sets))
+        by_bucket.setdefault(key, sets)
+    # a bucket an earlier phase of this run held against the plain versions
+    # is not run again: each bucket's plain versions take ~30 s on the H100,
+    # and with every bucket of this phase the script came within 20 s of
+    # its 1200 s limit
+    rows, where = {}, {}
+    for (n, m), sets in sorted(by_bucket.items()):
+        path = f"beacon_processor_{n}x{m}"
+        if (n, m) not in checked_buckets:
+            rows[path], _own, _args = check_kernels(path, sets)
+        where[f"{n}x{m}"] = checked_buckets.setdefault((n, m), path)
+    hash_rows, _hash_args = block_path_hash_rows("beacon_processor", captured)
+    emit({"phase": "beacon_processor_buckets", "checked_at": where})
+
+    def profiled_processor_import():
+        """The produced block's import once more, the singles' signatures
+        cached as the gossip pass left them, on a chain from the checkpoint
+        over a fresh native store: the same import (the block does not
+        become its head, see genesis_native_chain), and quick to build."""
+        stores = tuple(native_kv.NativeKVStore(os.path.join(tmp, "profiled", name))
+                       for name in doctor.DB_FILES)
+        c, _s = checkpoint_chain(store=HotColdDB(spec, hot=stores[0], cold=stores[1]))
+
+        def run_import():
+            try:
+                c.slot_clock.set_slot(next_slot)
+                c.per_slot_task()
+                c.process_block(produced, block_root=c.verify_block_for_gossip(produced),
+                                proposal_already_verified=True)
+            finally:
+                for store in stores:
+                    store.close()
+                shutil.rmtree(tmp, ignore_errors=True)
+        return run_import
+
+    return rows, hash_rows, profiled_processor_import
 
 
 def main() -> int:
@@ -2370,6 +2890,7 @@ def run() -> int:
     # and the urgent verify (4, 1); AggregateVerify's kernels run at the
     # gossip shapes (64 messages, 65 pairs)
     backend = be.TorchBackend(device="cuda")
+    checked_buckets = {}                     # (n, m) -> the first path checked there
 
     def check_kernels(path: str, sets) -> tuple[dict, dict, dict]:
         """Each kernel's row (measured, with its bound), its schedule
@@ -2377,6 +2898,7 @@ def run() -> int:
         arguments (the stage data)."""
         prepare_in, us = backend.marshal(sets, rands(len(sets)))
         n, m = prepare_in[0].shape[:2]
+        checked_buckets.setdefault((int(n), int(m)), path)
         z_pk, sig_acc, _bad = K.stage_prepare(*prepare_in)
         h_jac = K.hash_to_g2(us)
         pairs = K.stage_pairs(z_pk, h_jac, sig_acc, prepare_in[-1])
@@ -2690,10 +3212,17 @@ def run() -> int:
     # the same block and attestations through BeaconChain, on the fixture loaded above
     t0 = time.perf_counter()
     (checks["beacon_chain"], kernel_args["beacon_chain"], checks["beacon_chain_singles"],
-     kernel_args["beacon_chain_singles"], chain_hash_rows, profiled_chain_import) = (
+     kernel_args["beacon_chain_singles"], chain_hash_rows, profiled_chain_import, handoff) = (
         beacon_chain_phase(drive, launches, check_kernels, smi, block_fx, block_post_root))
+    beacon_chain_s = time.perf_counter() - t0
+    # gossip through the beacon processor, the op pool, a produced block
+    # and its import over the native store, on the chain's fixture and singles
+    t0 = time.perf_counter()
+    processor_rows, processor_hash_rows, profiled_processor_import = beacon_processor_phase(
+        drive, launches, check_kernels, checked_buckets, smi, block_fx, handoff)
     emit({"phase": "block_phases_seconds", "ef_state": ef_state_s,
-          "block_mainnet": block_mainnet_s, "beacon_chain": time.perf_counter() - t0})
+          "block_mainnet": block_mainnet_s, "beacon_chain": beacon_chain_s,
+          "beacon_processor": time.perf_counter() - t0})
 
     # the kernel line: the gossip path's numbers (the MSM kernels': the KZG
     # path's; the tree-hash and epoch kernels': their paths'), then each
@@ -2719,6 +3248,11 @@ def run() -> int:
         if name in block_hash_rows:
             table[name]["block_mainnet"] = block_hash_rows[name]
             table[name]["beacon_chain"] = chain_hash_rows[name]
+        for path, rows in processor_rows.items():
+            if name in rows:
+                table[name][path] = rows[name]
+        if name in processor_hash_rows:
+            table[name]["beacon_processor"] = processor_hash_rows[name]
 
     # each kernel's device ms from the profiler (prepare's three launches
     # apart) on the stage data of each bucket, beside the CUDA-event ms of
@@ -2757,6 +3291,10 @@ def run() -> int:
     emit_field_device_ms(field_cases)
     emit({"phase": "kzg_device_share", **device_share(kzg_verify)})
     # last: the block imports' long profiler sessions, so no short one follows them
+    # the produced block's import first: its singles' signatures are still
+    # cached, as the gossip pass left them; the imports after it clear the cache
+    emit({"phase": "beacon_processor_device_share", "nvidia_smi": smi,
+          **device_share(profiled_processor_import())})
     emit({"phase": "beacon_chain_device_share", "nvidia_smi": smi,
           **device_share(profiled_chain_import())})
     emit({"phase": "block_mainnet_device_share", "nvidia_smi": smi,

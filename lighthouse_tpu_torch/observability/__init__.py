@@ -1,6 +1,6 @@
 """Observability of the port: span tracing, the flight recorder, the SLO
-accountant, the device ledger, per-stage device attribution and program
-analytics (copies of the JAX package's modules of the same names).
+accountant, the device ledger, per-stage device attribution, program
+analytics and the pipeline snapshot (copies of the JAX package's modules of the same names).
 
   - `trace`: a lightweight span tracer. A Trace carries one work unit
     through the pipeline; completed traces land in a bounded ring and
@@ -23,6 +23,10 @@ analytics (copies of the JAX package's modules of the same names).
   - `perf`: program analytics (each stage's integer instructions and bytes
     at its inputs, `torchbls_program_*`) and the roofline against the
     card's peaks.
+  - `pipeline`: the stage-timing snapshot (per-stage timings, every
+    registered BeaconProcessor's live state, recent traces) and
+    `run_probe`, which pushes a small batch through a real BeaconProcessor
+    to the active BLS backend.
 
 Always-on by design: recording a trace is appending a few floats to a
 deque. Nothing here initializes a device.
@@ -37,6 +41,7 @@ from .trace import (  # noqa: F401
     current_trace,
     set_current_trace,
 )
+from .pipeline import register_processor, snapshot  # noqa: F401
 from . import device, device_ledger, flight_recorder, perf, slo  # noqa: F401  (registers their families + the log sink)
 from .device_ledger import LEDGER  # noqa: F401
 from .flight_recorder import RECORDER  # noqa: F401

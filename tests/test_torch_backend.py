@@ -90,23 +90,32 @@ def _warm_jax_stages(n, m):
     return stages
 
 
-def test_stages_and_verdicts_match_jax():
-    """One test, so one worker compiles the four JAX stage programs and the
-    JAX backend's verdicts (its single-device lane) reuse them."""
+# each bucket's sets' key counts: (4, 2) has a pubkey tree add and a masked
+# pubkey lane; (8, 4), whose JAX compile takes minutes, a 4-key tree and
+# three padding sets
+STAGE_BUCKETS = {(4, 2): (2, 1, 2), (8, 4): (2, 1, 2, 4, 3)}
+
+
+@pytest.mark.parametrize("bucket", [(4, 2), pytest.param((8, 4), marks=pytest.mark.slow)],
+                         ids=lambda b: f"{b[0]}x{b[1]}")
+def test_stages_and_verdicts_match_jax(bucket):
+    """One test per bucket, so one worker compiles the four JAX stage
+    programs and the JAX backend's verdicts (its single-device lane) reuse
+    them."""
     import jax
 
     from lighthouse_tpu.crypto.jaxbls import backend as jbe
 
     rng = random.Random(0xBAC)
-    # 2, 1 and 2 keys: a pubkey tree add and a masked pubkey lane
-    sets = [make_set(rng, bytes([i + 1]) * 32, n_keys=k) for i, k in enumerate((2, 1, 2))]
-    rands = [1, 0xDEADBEEF12345677, 0x42]
+    keys = STAGE_BUCKETS[bucket]
+    sets = [make_set(rng, bytes([i + 1]) * 32, n_keys=k) for i, k in enumerate(keys)]
+    rands = [1, 0xDEADBEEF12345677, 0x42, 0x1234567890ABCDEF, 0x77][:len(sets)]
     torch_be = TB.TorchBackend(device="cpu")
     prepare_in, us = torch_be.marshal(sets, rands)
-    assert tuple(prepare_in[0].shape[:2]) == (4, 2)
+    assert tuple(prepare_in[0].shape[:2]) == bucket
     np_prepare_in = ix.to_numpy(list(prepare_in))
 
-    prepare, h2c_stage, pairs_stage, pairing_stage = _warm_jax_stages(4, 2)
+    prepare, h2c_stage, pairs_stage, pairing_stage = _warm_jax_stages(*bucket)
     j_zpk, j_sig, j_bad = jax.block_until_ready(prepare(*np_prepare_in))
     j_h2c = jax.block_until_ready(h2c_stage(ix.to_numpy(us)))
     j_pairs = jax.block_until_ready(pairs_stage(j_zpk, j_h2c, j_sig, np_prepare_in[-1]))
@@ -124,7 +133,7 @@ def test_stages_and_verdicts_match_jax():
     from test_torch_h2c import is_qr
 
     qr = [is_qr(u) for s in sets for u in ref_h2c.hash_to_field_fq2(s.message, 2, DST_POP)]
-    assert any(qr) and not all(qr) and not bool(us[3].any())
+    assert any(qr) and not all(qr) and not bool(us[len(sets):].any())
     pairs = TB.stage_pairs(z_pk, h_jac, sig_acc, prepare_in[-1])
     assert same(pairs, j_pairs)
     assert bool(TB.stage_pairing(*pairs)) == j_ok is True
@@ -265,6 +274,20 @@ def test_import_and_cpu_verify_load_no_jax():
         "from lighthouse_tpu_torch import loadgen\n"
         "from lighthouse_tpu_torch.loadgen import scenarios, state_root\n"
         "assert loadgen.get_scenario is scenarios.get_scenario\n"
+        "from lighthouse_tpu_torch.utils import task_executor\n"
+        "from lighthouse_tpu_torch.store import doctor, native_kv\n"
+        "from lighthouse_tpu_torch.execution import block_hash\n"
+        "from lighthouse_tpu_torch.chain import (beacon_processor, execution_layer, op_pool,\n"
+        "    scheduler)\n"
+        "from lighthouse_tpu_torch.qos import admission, ratelimit\n"
+        "from lighthouse_tpu_torch.observability import pipeline\n"
+        "from lighthouse_tpu_torch.network import gossip\n"
+        "from lighthouse_tpu_torch.loadgen import faults, runner, storefaults\n"
+        "from lighthouse_tpu_torch import qos\n"
+        "assert loadgen.run_scenario is runner.run_scenario and qos.RateLimiter\n"
+        "assert observability.register_processor is pipeline.register_processor\n"
+        "rep = loadgen.run_scenario(loadgen.smoke_variant(loadgen.get_scenario('steady')))\n"
+        "assert rep['dropped'] == {} and rep['processed']['gossip_attestation'], rep\n"
         "chain = beacon_chain.BeaconChain(hs.spec, genesis.interop_genesis_state(\n"
         "    hs.keypairs, hs.genesis_time, hs.spec))\n"
         "chain.slot_clock.set_slot(2)\n"

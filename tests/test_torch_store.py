@@ -134,10 +134,12 @@ def chain():
             "snapshots": snapshots, "keypairs": harness.keypairs}
 
 
-def populate(hcm, spec, types, genesis, blocks, snapshots):
+def populate(hcm, spec, types, genesis, blocks, snapshots, compact=True, **kv_stores):
     """The reference test's freezer: genesis and every block's state put
-    hot, then migrated below the last slot + 1."""
-    db = hcm.HotColdDB(spec, config=hcm.StoreConfig(slots_per_restore_point=SPRP))
+    hot, then migrated below the last slot + 1 (on `kv_stores`' hot and cold
+    stores where given, else on MemoryStores)."""
+    db = hcm.HotColdDB(spec, config=hcm.StoreConfig(slots_per_restore_point=SPRP,
+                                                    compact_on_migration=compact), **kv_stores)
     g_root = types.BeaconState.hash_tree_root(genesis)
     db.put_state(g_root, genesis, types)
     segment = [(0, b"\x00" * 32, g_root)]
@@ -327,3 +329,221 @@ def test_state_root_scenario_smoke_matches_jax(monkeypatch):
         routes = report["tree_hash_routes"]
         assert bool(routes.get("device/ok")) == (backend == "device")
         assert not routes.get("host/device_error")
+
+
+# ------------------------------------------------- the native store, doctor
+
+
+def log_engine(package: str, engine: str):
+    """PurePythonKVStore, or the port's NativeKVStore (its g++ build)."""
+    import importlib
+
+    native_kv = importlib.import_module(f"{package}.store.native_kv")
+    if engine == "python":
+        return native_kv.PurePythonKVStore
+    assert package == "lighthouse_tpu_torch"      # the reference's would build beside itself
+    return native_kv.NativeKVStore
+
+
+def relative(report, datadir: str):
+    """A doctor report with its datadir's path taken out."""
+    import json
+
+    return json.loads(json.dumps(report, default=str).replace(datadir, "<datadir>"))
+
+
+@pytest.fixture(scope="module")
+def datadirs(chain, tmp_path_factory):
+    """The freezer's datadir written through each engine: the reference's
+    PurePythonKVStore, the port's PurePythonKVStore and its NativeKVStore
+    (fsync off: the bytes are what is compared; the migration's compaction
+    is left to the test, as the C++ engine rewrites the live records in its
+    hash map's order)."""
+    import pickle
+
+    out = {}
+    for package, engine, hcm, side in (("lighthouse_tpu", "python", jhc, "jax"),
+                                       ("lighthouse_tpu_torch", "python", hc, "port"),
+                                       ("lighthouse_tpu_torch", "native", hc, "port")):
+        d = tmp_path_factory.mktemp(f"{package}-{engine}")
+        Store = log_engine(package, engine)
+        hot, cold = Store(d / "hot.db", fsync="never"), Store(d / "cold.db", fsync="never")
+        db, _before, seg = populate(hcm, *chain[side], chain["snapshots"], compact=False,
+                                    hot=hot, cold=cold)
+        # a resume record whose anchor block and state are in the hot log
+        types, (slot, broot, sroot) = chain[side][1], seg[-1]
+        db.put_state(sroot, types.BeaconState.deserialize(chain["snapshots"][-1][2]), types)
+        db.put_chain_item(b"persisted-head", pickle.dumps({
+            "head_root": broot, "finalized_root": broot, "finalized_epoch": 0,
+            "anchor_root": broot, "block_slots": {broot: slot},
+            "state_root_by_block": {broot: sroot}}))
+        hot.close()
+        cold.close()
+        out[(package, engine)] = (d, Store)
+    return out
+
+
+@pytest.mark.parametrize("engine", ["python", "native"])
+def test_kv_logs_and_doctor_match_jax(datadirs, engine):
+    """The port's engine writes the reference's record log byte for byte;
+    scan_log and fsck_datadir give the reference's reports on the clean
+    datadir and after a flipped bit in the hot log's last record."""
+    import shutil
+
+    from lighthouse_tpu.loadgen import storefaults as jsf
+    from lighthouse_tpu.store import doctor as jdoctor
+    from lighthouse_tpu_torch.loadgen import storefaults as sf
+    from lighthouse_tpu_torch.store import doctor, native_kv
+
+    jdir, _ = datadirs[("lighthouse_tpu", "python")]
+    pdir, Store = datadirs[("lighthouse_tpu_torch", engine)]
+    if engine == "native":
+        assert Store is native_kv.NativeKVStore and not native_kv._fallback_warned
+        assert native_kv._lib_path().is_relative_to(native_kv.BUILD_ROOT)
+    for name in doctor.DB_FILES:
+        assert (pdir / name).read_bytes() == (jdir / name).read_bytes(), name
+    reports = []
+    for root, dm, sfm in ((jdir, jdoctor, jsf), (pdir, doctor, sf)):
+        work = root.parent / f"{root.name}-flipped"
+        shutil.copytree(root, work)
+        clean = dm.fsck_datadir(work)
+        start, _end = sfm.last_record_span(work / "hot.db")
+        sfm.flip_bit(work / "hot.db", start + 8 + 2)
+        scanned = dm.scan_log(work / "hot.db")
+        flipped, repaired = dm.fsck_datadir(work), dm.fsck_datadir(work, repair=True)
+        reports.append(relative([clean, scanned, flipped, repaired, dm.fsck_datadir(work)],
+                                str(work)))
+        shutil.rmtree(work)
+    assert reports[1] == reports[0]
+    clean, scanned, flipped, repaired, after = reports[1]
+    assert clean["ok"] and not flipped["ok"] and scanned["tail_error"]
+    # the repair truncates the flipped record, the resume record, so the
+    # prefix's older one (populate's bare root) is the live one again
+    assert repaired["repaired"] and after["logs"]["hot.db"]["tail_error"] is None
+    assert after["problems"] == [p for p in flipped["problems"] if "tail" not in p]
+    assert after["anchor"] == {"persisted": True, "readable": False}
+    # compacted, on a copy: the same live records (the C++ engine writes
+    # them in its own order), the same doctor report; and the port's engine
+    # reopens the reference's log with the same contents
+    views = []
+    for root, Engine, kvm, dm in ((jdir, log_engine("lighthouse_tpu", "python"), jkv, jdoctor),
+                                  (pdir, Store, kv, doctor)):
+        work = root.parent / f"{root.name}-compacted"
+        shutil.copytree(root, work)
+        store = Engine(work / "hot.db", fsync="never")
+        store.compact()
+        store.close()
+        reopened = Store(work / "hot.db", fsync="never")
+        try:
+            views.append(({c.value: sorted(reopened.iter_column(c)) for c in kvm.Column},
+                          relative(dm.fsck_datadir(work), str(work))))
+        finally:
+            reopened.close()
+        shutil.rmtree(work)
+    assert views[1] == views[0] and views[1][1]["ok"]
+
+
+def test_native_load_failure_falls_back_as_jax(tmp_path, monkeypatch):
+    """The reference's degradation: when the library cannot load,
+    NativeKVStore(path) gives the pure-Python engine and warns once."""
+    from lighthouse_tpu_torch.store import native_kv
+    from lighthouse_tpu_torch.utils.logging import RECENT
+
+    def boom():
+        raise OSError("GLIBCXX_9.9.99 not found (simulated)")
+
+    monkeypatch.setattr(native_kv, "_load", boom)
+    monkeypatch.setattr(native_kv, "_fallback_warned", False)
+    s = native_kv.NativeKVStore(tmp_path / "kv.log")
+    assert isinstance(s, native_kv.PurePythonKVStore)
+    s.put(kv.Column.block, b"k", b"v")
+    assert s.get(kv.Column.block, b"k") == b"v"
+    s.close()
+    native_kv.NativeKVStore(tmp_path / "kv2.log").close()
+    warns = [r for r in RECENT if r[2] == "store" and "falling back" in r[3]]
+    assert len(warns) == 1 and "GLIBCXX_9.9.99" in warns[-1][4]["error"]
+
+
+@pytest.mark.parametrize("plan", [{"tear_at": 4, "tear_keep_bytes": 9}, {"crash_at": 3},
+                                  {"flip_crc_at": 2}])
+def test_faulty_store_matches_jax(tmp_path, plan):
+    """storefaults.FaultyKVStore under the same fault plan: the same bytes
+    on disk, the same fault, and the same contents after a reopen."""
+    import importlib
+
+    out = []
+    for package in ("lighthouse_tpu", "lighthouse_tpu_torch"):
+        sf = importlib.import_module(f"{package}.loadgen.storefaults")
+        kvm = importlib.import_module(f"{package}.store.kv")
+        path = tmp_path / package / "hot.db"
+        store = sf.FaultyKVStore(path, plan=sf.FaultPlan(**plan), fsync="never")
+        fault = None
+        try:
+            for i in range(6):
+                store.put(kvm.Column.block, bytes([i]) * 32, bytes([i]) * (10 + i))
+        except (sf.SimulatedCrash, sf.StoreCrashed) as e:
+            fault = (type(e).__name__, str(e))
+        written = path.read_bytes()
+        store._log.close()
+        reopened = sf.PurePythonKVStore(path, fsync="never")
+        out.append((fault, store.writes, written, path.read_bytes(),
+                    sorted(reopened.iter_column(kvm.Column.block))))
+        reopened.close()
+    assert out[1] == out[0]
+
+
+# ------------------------------------------------------------ task executor
+
+
+def test_task_executor_and_lockfile_match_jax(tmp_path):
+    """tests/test_task_executor.py's four cases on both packages."""
+    import importlib
+    import os
+    import time
+
+    def cases(te):
+        out = []
+        ex, ran = te.TaskExecutor(), []
+
+        def svc(exit_signal):
+            ran.append(True)
+            exit_signal.wait(5)
+            ran.append("stopped")
+
+        ex.spawn(svc, "svc")
+        time.sleep(0.05)
+        ex.shutdown("test over")
+        ex.join()
+        out.append(ran)
+        for critical in (True, False):
+            fatal = []
+            ex = te.TaskExecutor(on_fatal=fatal.append)
+
+            def bad(exit_signal):
+                raise RuntimeError("boom")
+
+            ex.spawn(bad, "bad", critical=critical)
+            ex.join()
+            out.append((ex.exit_signal.is_set(), ex.panicked, ["bad" in f for f in fatal]))
+        path = str(tmp_path / f"{te.__name__}.lock")
+        with te.Lockfile(path):
+            try:
+                te.Lockfile(path).acquire()
+                out.append("acquired twice")
+            except te.LockfileError:
+                out.append("refused")
+        lk = te.Lockfile(path)
+        lk.acquire()
+        lk.release()
+        with open(path, "w") as f:
+            f.write("999999999")
+        stale = te.Lockfile(path)
+        stale.acquire()
+        out.append(int(open(path).read()) == os.getpid())
+        stale.release()
+        return out
+
+    want, got = (cases(importlib.import_module(f"{p}.utils.task_executor"))
+                 for p in ("lighthouse_tpu", "lighthouse_tpu_torch"))
+    assert got == want
+    assert got == [[True, "stopped"], (True, "bad", [True]), (False, "bad", []), "refused", True]
