@@ -134,7 +134,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
  13. beacon_chain: the same block through chain/beacon_chain.py's
      BeaconChain from the fixture's genesis ("torch", the "device" hash
      backend): the state-advance timer at slot 63, then gossip verify and
-     process_block (130 sets at (256, 512)) with the launch counts reset:
+     process_block (130 sets at (256, 512), the signatures cached by
+     block_mainnet's import) with the launch counts reset:
      the head, its state root (the block's and block_mainnet's), the
      store's block and state and the fork-choice head checked; a fresh
      chain rejects the swapped copy and keeps its anchor; 64 single
@@ -168,7 +169,22 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
      the queue waits and the walls split; every BLS path kernel against
      its plain version at each bucket the phase ran that no earlier phase
      held, the ladder at its widths;
- 15. each kernel's device time from torch.profiler at the four buckets
+ 15. bn: `python -m lighthouse_tpu_torch bn` run as cli.main on this
+     thread ("torch", the "device" hash backend, a native store, free
+     ports) from the fixture's genesis state with its genesis_time moved
+     to one slot before the phase, the spec as a config.yaml, peer A (an
+     in-process NetworkNode on its own chain) as its static peer: peer A
+     publishes 64 single attestations of slot 0 over gossip (TCP,
+     gossipsub), which the node's processor verifies on the card, all of
+     them reaching its op pool; block 1 produced over the Beacon HTTP API
+     (GET /eth/v3/validator/blocks/1), signed and published (POST
+     /eth/v2/beacon/blocks), imported as head and packing the 64
+     validators, the API's head root and state root, peer count and a
+     /metrics scrape; peer B range-syncs it over Req/Resp to the same
+     head; SIGTERM: exit 0, the chain persisted, fsck_datadir clean; the
+     path kernels against their plain versions at each bucket no earlier
+     phase held, the ladder at its widths;
+ 16. each kernel's device time from torch.profiler at the four buckets
      and (256, 512) (prepare's three launches apart), beside phase 3's
      CUDA-event times, which take in the host's time where a wrapper's
      Python outlasts its kernel, and the gossip bucket's sums per stage
@@ -178,7 +194,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
      path's; the card's busy share of one KZG batch verify; last, of one
      more import through BeaconChain, of the produced block's through
      BeaconChain on the native store and of one more through
-     state_transition (their signatures' cache cleared).
+     state_transition (their signatures cached).
 The last two lines are the kernel table and the device line. To time
 another checkout's kernels with this script, copy it into that checkout's
 root and run it there.
@@ -262,6 +278,11 @@ PRODUCE_PATH = ("sha256_ladder",)  # produce_block: the post-state root, no sign
 PROCESSOR_DRAIN_S = 300           # the live processor's drain: 64 decompressions, at most
 PROBE_ITEMS = 8                   # observability.pipeline.run_probe's batch
 CHAIN_SETS, SINGLES, SINGLES_BAD, SIGN_WORKERS = 130, 64, 17, 8
+# `python -m lighthouse_tpu_torch bn` on the same registry: peer A's SINGLES
+# gossip singles of slot 0, block 1 produced and published over HTTP, peer
+# B's range sync; every wait of the phase BN_WAIT_S at most
+BN_PATH = MAIN_PATH + ("sha256_ladder",)
+BN_WAIT_S = 300
 
 # 32-bit instructions of one SHA-256 compression as csrc/sha256.cu writes
 # it, at Hopper's three-input LOP3 and IADD3: a round is 14 (Sigma1 and
@@ -1958,10 +1979,9 @@ def block_mainnet_phase(drive, launches, check_kernels, smi, fixture_proc):
     hash_rows, hash_args = block_path_hash_rows("block_mainnet", captured)
 
     def profiled_import():
-        """The import once more, as the first was: the signatures not yet
-        decompressed (their cache cleared)."""
+        """The import once more, its signatures cached (the first import
+        timed their decompression)."""
         st = clone_state(pre, spec)
-        bls.Signature._CACHE.clear()
         return lambda: sl.state_transition(st, signed, spec,
                                            strategy=blk.SignatureStrategy.VERIFY_BULK)
 
@@ -1977,10 +1997,11 @@ def beacon_chain_phase(drive, launches, check_kernels, smi, fx, post_root):
     0 to 64, the epoch transitions), then per_slot_task at slot 64,
     verify_block_for_gossip and process_block with the proposal verified,
     driven with the launch counts reset and their walls split by
-    CallTimer, the signatures' cache cleared first (as a node first sees
-    them). A chain anchored in a later epoch, at the pre-state of slot 63,
-    takes that epoch as finalized (ForkChoice's anchor checkpoints) and
-    never makes the block head: its post-state's finalized epoch is 0
+    CallTimer, the signatures cached as block_mainnet's import left them
+    (their decompression is timed there). A chain anchored in a later
+    epoch, at the pre-state of slot 63, takes that epoch as finalized
+    (ForkChoice's anchor checkpoints) and never makes the block head: its
+    post-state's finalized epoch is 0
     (the JAX package's chain does the same). Checks the head, its state
     root (the block's and block_mainnet's), the store's block and state
     and the fork-choice head. A fresh chain rejects the swapped copy and
@@ -2096,7 +2117,8 @@ def beacon_chain_phase(drive, launches, check_kernels, smi, fx, post_root):
             walls["process_block"] = time.perf_counter() - t
         return got
 
-    bls.Signature._CACHE.clear()             # the block's signatures as a node first sees them
+    # the block's signatures stay cached as block_mainnet's import left
+    # them: their decompression (~23-27 s) is timed there
     try:
         got, wall_s = drive("beacon_chain", BEACON_CHAIN_PATH, import_block)
     finally:
@@ -2292,10 +2314,9 @@ def beacon_chain_phase(drive, launches, check_kernels, smi, fx, post_root):
 
     def profiled_chain_import():
         """The import once more on a fresh chain (advanced to the block's
-        slot first), its signatures' cache cleared."""
+        slot first), its signatures cached."""
         c, _s = new_chain()
         advance(c)
-        bls.Signature._CACHE.clear()
 
         def run_import():
             c.slot_clock.set_slot(slot)
@@ -2312,8 +2333,9 @@ def beacon_chain_phase(drive, launches, check_kernels, smi, fx, post_root):
 def beacon_processor_phase(drive, launches, check_kernels, checked_buckets, smi, fx, handoff):
     """Gossip attestations the way a node takes them, on "torch" and the
     "device" hash backend, on beacon_chain's fixture, imported block and
-    singles (the signatures' cache cleared first, so the first pass
-    decompresses them as a node first does; later passes reuse it):
+    singles (the singles' signatures dropped from the cache first, so the
+    first pass decompresses them as a node first does; later passes reuse
+    them):
 
     1. live: a chain from the imported block (from_checkpoint) with an
        OperationPool; a BeaconProcessor behind an AdmissionController on
@@ -2520,7 +2542,11 @@ def beacon_processor_phase(drive, launches, check_kernels, checked_buckets, smi,
         native_chain = genesis_native_chain(os.path.join(tmp, "import"))
         for got in captured.values():         # their batches are not this phase's
             got.clear()
-        bls.Signature._CACHE.clear()          # the singles as a node first sees them
+        # the singles as a node first sees them; the imported block's
+        # signatures stay cached for the profiled imports at the end
+        fresh = {bytes(a.signature) for a in singles + bad}
+        for key in [k for k in bls.Signature._CACHE if k[0] in fresh]:
+            del bls.Signature._CACHE[key]
 
         # 1. live: the workers started, the singles published, drain, stop
         chain, init_s = checkpoint_chain()
@@ -2792,6 +2818,415 @@ def beacon_processor_phase(drive, launches, check_kernels, checked_buckets, smi,
         return run_import
 
     return rows, hash_rows, profiled_processor_import
+
+
+def bn_phase(drive, launches, check_kernels, checked_buckets, smi, fx):
+    """`python -m lighthouse_tpu_torch bn` as an operator runs it, on
+    block_mainnet's 2^14-validator registry and keys (the mainnet preset,
+    deneb from genesis): the fixture's genesis state with its genesis_time
+    moved to one slot before the phase (a node started from mainnet's own
+    genesis time would advance its head state ~10^8 slots), written as SSZ
+    beside the spec's config.yaml. `cli.main(["bn", ...])` runs on this
+    thread with the "torch" BLS and "device" hash backends, a native store
+    in a temporary datadir, free ports and peer A as its static peer; a
+    helper thread drives it:
+
+    1. peer A, an in-process NetworkNode on its own BeaconChain from the
+       same genesis, publishes SINGLES single attestations of slot 0 over
+       gossip (16 of each of slot 0's committees, signed on SIGN_WORKERS
+       spawned processes); the node's BeaconProcessor verifies them on the
+       card in the batches its scheduler forms: all processed, none
+       dropped, expired or shed, all in the op pool the node serves from
+       (the reference's API has no GET for the attestation pool);
+    2. GET /eth/v3/validator/blocks/1 with the proposer's RANDAO reveal,
+       the block signed by its proposer, POST /eth/v2/beacon/blocks: the
+       node imports it on the card; its attestations cover exactly the
+       singles' validators; /eth/v1/beacon/headers/head and
+       /eth/v1/beacon/states/head/root give its root and state root;
+       /eth/v1/node/peer_count and a /metrics scrape (beacon_head_slot 1)
+       answer;
+    3. peer B, a fresh in-process node, dials the node and range-syncs
+       block 1 over Req/Resp into process_chain_segment on the card: its
+       head is the node's;
+    4. SIGTERM: cli.main returns 0, the log says "chain persisted; store
+       flushed and closed", store.doctor.fsck_datadir comes back clean.
+    A failure of the helper still raises SIGTERM; the phase then fails
+    after cli.main returns. The whole run is one path, driven with the
+    launch counts reset (the peers are built before it); every kernel of
+    BN_PATH must launch. Then each path kernel against its plain version
+    at every bucket the phase's batches ran that no earlier phase held,
+    and the ladder at the widths it hashed. Returns those rows by bucket
+    and the ladder's rows."""
+    import multiprocessing as mp
+    import shutil
+    import signal
+    import tempfile
+    import threading
+    import urllib.request
+
+    from lighthouse_tpu_torch import cli
+    from lighthouse_tpu_torch.api import client as api_client
+    from lighthouse_tpu_torch.autotune import runtime as at_runtime
+    from lighthouse_tpu_torch.api import http_api
+    from lighthouse_tpu_torch.chain import beacon_chain as bc
+    from lighthouse_tpu_torch.crypto import bls
+    from lighthouse_tpu_torch.crypto.bls381 import serde
+    from lighthouse_tpu_torch.crypto.torchbls import backend as be
+    from lighthouse_tpu_torch.network import gossip, transport
+    from lighthouse_tpu_torch.network.node import NetworkNode
+    from lighthouse_tpu_torch.observability import flight_recorder, trace
+    from lighthouse_tpu_torch.ssz.core import uint64
+    from lighthouse_tpu_torch.state_transition import accessors as acc
+    from lighthouse_tpu_torch.state_transition import slot as sl
+    from lighthouse_tpu_torch.store import doctor
+    from lighthouse_tpu_torch.testing import block_fixtures as bf
+    from lighthouse_tpu_torch.torchhash import engine
+    from lighthouse_tpu_torch.torchhash import epoch_vectors as ev
+    from lighthouse_tpu_torch.types import helpers as h
+    from lighthouse_tpu_torch.types import network_config
+    from lighthouse_tpu_torch.types.spec import (DOMAIN_BEACON_ATTESTER, DOMAIN_BEACON_PROPOSER,
+                                                 DOMAIN_RANDAO)
+    from lighthouse_tpu_torch.types.state_util import clone_state
+    from lighthouse_tpu_torch.utils import logging as lg
+    from lighthouse_tpu_torch.utils import metrics as um
+    from lighthouse_tpu_torch.utils.slot_clock import SystemTimeSlotClock
+
+    tmp = tempfile.mkdtemp(prefix="bn-")
+    # the singles' signers (spawned: this process holds the card and its
+    # threads) import while the genesis and the peers are built
+    pool = mp.get_context("spawn").Pool(SIGN_WORKERS)
+    try:
+        # the spec as a config.yaml, read back as the node reads it
+        config_path = os.path.join(tmp, "config.yaml")
+        with open(config_path, "w") as f:
+            f.write(network_config.config_to_yaml(fx.spec))
+        with open(config_path) as f:
+            spec = network_config.config_from_yaml(f.read())
+        types = sl.types_for_slot(spec, 0)
+        genesis = clone_state(fx.genesis_state, spec)
+        genesis.genesis_time = int(time.time()) - spec.seconds_per_slot
+        state_path = os.path.join(tmp, "genesis.ssz")
+        with open(state_path, "wb") as f:
+            f.write(types.BeaconState.serialize(genesis))
+
+        def peer(name):
+            """A node of its own on a chain from the same genesis, on the
+            wall clock, its p2p stack on a free port."""
+            chain = bc.BeaconChain(spec, clone_state(genesis, spec), slot_clock=SystemTimeSlotClock(
+                int(genesis.genesis_time), spec.seconds_per_slot))
+            digest = h.compute_fork_digest(spec.fork_version(spec.fork_name_at_slot(0)),
+                                           bytes(genesis.genesis_validators_root))
+            return NetworkNode(chain, name, fork_digest=digest)
+
+        t0 = time.perf_counter()
+        node_a, node_b = peer("peer-a"), peer("peer-b")
+        peers_s = time.perf_counter() - t0
+        chain_a = node_a.chain
+        root0 = chain_a.genesis_block_root
+
+        # SINGLES single attestations of slot 0, signed on spawned processes
+        # while the node starts
+        head = chain_a.head_state()
+        cache = acc.build_committee_cache(head, spec, 0)
+        domain = h.get_domain(head, spec, DOMAIN_BEACON_ATTESTER, 0)
+        target = types.Checkpoint.make(epoch=0, root=root0)
+        datas = [types.AttestationData.make(
+            slot=0, index=c, beacon_block_root=root0, source=head.current_justified_checkpoint,
+            target=target) for c in range(cache.committees_per_slot)]
+        members, jobs = [], []
+        for k in range(SINGLES):
+            c, pos = k % cache.committees_per_slot, k // cache.committees_per_slot
+            committee = cache.committee(0, c)
+            members.append((c, pos, len(committee), committee[pos]))
+            jobs.append((fx.keypairs[committee[pos]].sk.scalar,
+                         h.compute_signing_root(types.AttestationData, datas[c], domain)))
+        validators = sorted(v for *_rest, v in members)
+        signing = pool.starmap_async(bf.sign_root, jobs, chunksize=1)
+
+        # the node's own objects, for reading only: serve() and the metrics
+        # server's ports, the chain behind them
+        seen, ready = {}, threading.Event()
+        saved = (http_api.serve, um.metrics_http_server, bls.verify_signature_sets,
+                 bls.verify_signature_sets_async, engine.device_build_levels,
+                 ev._device_altair_deltas)
+
+        def serve(chain, **kw):
+            server, thread, port = saved[0](chain, **kw)
+            seen.update(chain=chain, op_pool=kw.get("op_pool"), http_port=port,
+                        http_seconds=time.perf_counter() - seen["t_start"])
+            return server, thread, port
+
+        def metrics_server(**kw):
+            server, port = saved[1](**kw)
+            seen["metrics_port"] = port
+            ready.set()
+            return server, port
+
+        captured = {"sets": [], "leaves": [], "epoch": []}
+
+        def capture(label, fn):
+            def wrapped(*args, **kwargs):
+                captured[label].append(list(args[0]) if label == "sets" else args)
+                return fn(*args, **kwargs)
+            return wrapped
+
+        out, marks, failure, main_lock = {}, {}, [], threading.Lock()
+        timer = CallTimer([(serde, "g2_decompress", "decompress")])
+
+        def launches_now():
+            return {name: k[0].launches for name, k in kernel_registry().items()}
+
+        def wait_for(cond, what, timeout=BN_WAIT_S, poll=0.005):
+            t = time.perf_counter()
+            while not cond():
+                if time.perf_counter() - t > timeout:
+                    raise TimeoutError(f"timed out waiting for {what}")
+                time.sleep(poll)
+            return time.perf_counter() - t
+
+        def get_json(port, path):
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=60) as r:
+                return json.loads(r.read())
+
+        def drive_node():
+            """The helper thread: everything the node is asked, then SIGTERM."""
+            try:
+                if not ready.wait(BN_WAIT_S):
+                    raise TimeoutError("the node never started its servers")
+                chain, op_pool = seen["chain"], seen["op_pool"]
+                node = chain._network_node
+                marks["started"] = launches_now()
+                port = seen["http_port"]
+                http = api_client.BeaconNodeHttpClient(f"http://127.0.0.1:{port}", timeout=120.0)
+
+                # 1. peer A's gossip into the node's processor
+                topics = {gossip.attestation_subnet_topic(node_a.fork_digest,
+                                                          gossip.compute_subnet_for_attestation(
+                                                              cache.committees_per_slot, 0, c, spec))
+                          for c in range(cache.committees_per_slot)}
+                mesh_s = wait_for(lambda: topics <= node_a.gossipsub.peer_topics.get(
+                    node.node_id, set()), "peer A to learn the node's subnets")
+                t = time.perf_counter()
+                signatures = signing.get(timeout=BN_WAIT_S)
+                sign_wait_s = time.perf_counter() - t
+                singles = [types.Attestation.make(
+                    aggregation_bits=[i == pos for i in range(size)], data=datas[c],
+                    signature=signatures[k]) for k, (c, pos, size, _v) in enumerate(members)]
+                traces_before = trace.TRACER.completed
+                kind = "gossip_attestation"
+                with timer:
+                    t_pub = time.perf_counter()
+                    for att in singles:
+                        node_a.publish_attestation(att, gossip.compute_subnet_for_attestation(
+                            cache.committees_per_slot, 0, int(att.data.index), spec))
+                    publish_s = time.perf_counter() - t_pub
+
+                    def pooled():
+                        return sorted(i for b in list(op_pool.attestations.values())
+                                      for e in list(b) for i in e.attesting_indices)
+
+                    wait_for(lambda: node.processor.stats()["processed"].get(kind, 0) >= SINGLES
+                             and node.processor.queues_empty() and len(pooled()) == SINGLES,
+                             "the singles to reach the node's op pool")
+                    gossip_wall = time.perf_counter() - t_pub
+                stats = node.processor.stats()
+                ring = trace.TRACER.snapshot_ring()
+                done = ring[len(ring) - min(len(ring), trace.TRACER.completed - traces_before):]
+                batches = [tr for tr in done if tr.kind == kind]
+                last_end = max((t1 for tr in batches for _n, _t0, t1, _a in tr.spans), default=t_pub)
+                out["gossip"] = {
+                    "peers_connected_seconds": mesh_s, "sign_wait_seconds": sign_wait_s,
+                    "publish_seconds": publish_s,
+                    "first_publish_to_last_batch_end_seconds": last_end - t_pub,
+                    "first_publish_to_pool_seconds": gossip_wall,
+                    "batches": [tr.n_items for tr in batches],
+                    "batch_stage_seconds": [{n: t1 - t0 for n, t0, t1, _a in tr.spans}
+                                            for tr in batches],
+                    "decompress_seconds": timer.seconds.get("decompress", 0.0),
+                    "scheduler": {k: stats["scheduler"][k] for k in ("caps", "decisions")},
+                    "checks": {"processed": stats["processed"] == {kind: SINGLES},
+                               "none_dropped_expired_shed": not (
+                                   stats["dropped"] or stats["expired"]
+                                   or stats["shed_admission"]),
+                               "pool_holds_the_singles": pooled() == validators}}
+                marks["gossip"] = launches_now()
+
+                # 2. produce block 1 over HTTP, sign it, publish it
+                t = time.perf_counter()
+                wait_for(lambda: (chain.slot_clock.now() or 0) >= 1, "slot 1")
+                slot1_wait_s = time.perf_counter() - t
+                duties = [d for d in http.proposer_duties(0) if d.slot == 1]
+                st = clone_state(genesis, spec)
+                sl.process_slots(st, spec, 1)
+                proposer = acc.get_beacon_proposer_index(st, spec)
+                sk = fx.keypairs[proposer].sk.scalar
+                t = time.perf_counter()
+                reveal = bf.sign_root(sk, h.compute_signing_root(
+                    uint64, 0, h.get_domain(st, spec, DOMAIN_RANDAO, 0)))
+                reveal_s = time.perf_counter() - t
+                t = time.perf_counter()
+                block = http.produce_block(1, reveal, types)
+                produce_s = time.perf_counter() - t
+                t = time.perf_counter()
+                signed = types.SignedBeaconBlock.make(message=block, signature=bf.sign_root(
+                    sk, h.compute_signing_root(types.BeaconBlock, block, h.get_domain(
+                        st, spec, DOMAIN_BEACON_PROPOSER, 0))))
+                sign_s = time.perf_counter() - t
+                block_root = types.BeaconBlock.hash_tree_root(block)
+                t = time.perf_counter()
+                http.publish_block(signed, types)
+                publish_block_s = time.perf_counter() - t
+                packed = sorted(i for a in block.body.attestations for i in
+                                acc.get_attesting_indices(chain.head_state(), spec, a.data,
+                                                          a.aggregation_bits))
+                header = http.header("head")
+                peer_count = get_json(port, "/eth/v1/node/peer_count")["data"]
+
+                def head_slot_lines():
+                    with urllib.request.urlopen(
+                            f"http://127.0.0.1:{seen['metrics_port']}/metrics", timeout=60) as r:
+                        return [ln for ln in r.read().decode().splitlines()
+                                if ln.startswith("beacon_head_slot ")]
+
+                # the slot timer sets the gauge at its next tick
+                metrics_wait_s = wait_for(lambda: head_slot_lines() == ["beacon_head_slot 1"],
+                                          "beacon_head_slot 1 on /metrics",
+                                          timeout=2 * spec.seconds_per_slot + 5, poll=0.1)
+                out["block"] = {
+                    "slot1_wait_seconds": slot1_wait_s, "proposer": proposer,
+                    "randao_sign_seconds": reveal_s, "produce_seconds": produce_s,
+                    "block_sign_seconds": sign_s, "publish_to_import_seconds": publish_block_s,
+                    "attestations": len(block.body.attestations), "peer_count": peer_count,
+                    "metrics_wait_seconds": metrics_wait_s,
+                    "checks": {
+                        "proposer_duty": [d.validator_index for d in duties] == [proposer],
+                        "packs_the_singles": packed == validators,
+                        "imported_as_head": chain.head_root == block_root,
+                        "api_head_root": bytes.fromhex(header["root"][2:]) == block_root,
+                        "api_state_root": http.state_root("head") == bytes(block.state_root),
+                        "peer_count_answers": int(peer_count["connected"]) >= 1,
+                        "metrics_head_slot_1": head_slot_lines() == ["beacon_head_slot 1"]}}
+                marks["block"] = launches_now()
+
+                # 3. peer B range-syncs block 1 from the node
+                host, p2p_port = node.host.listen_addr
+                t = time.perf_counter()
+                node_b.host.dial(host, p2p_port)
+                wait_for(lambda: any(st.head_slot >= 1 for st in node_b.sync.peer_status.values()),
+                         "peer B's Status handshake with the node")
+                handshake_s = time.perf_counter() - t
+                t = time.perf_counter()
+                imported = node_b.sync.sync()
+                sync_s = time.perf_counter() - t
+                out["sync"] = {"handshake_seconds": handshake_s, "seconds": sync_s,
+                               "imported": imported,
+                               "checks": {"imported_one": imported == 1,
+                                          "same_head": node_b.chain.head_root == chain.head_root
+                                          == block_root}}
+                marks["sync"] = launches_now()
+                out["links"] = {
+                    "cryptography_available": transport.crypto_available(),
+                    "encrypted": {name: sorted(c._tx is not None for c in
+                                               n.host.connections.values())
+                                  for name, n in (("node", node), ("peer_a", node_a),
+                                                  ("peer_b", node_b))}}
+                seen["datadir_head"] = chain.head_root
+            except BaseException as e:   # reported after cli.main returns
+                failure.append(e)
+            finally:
+                # SIGTERM once cmd_bn's handler is in place, and only while
+                # cli.main still runs (the default action would end the script)
+                t = time.perf_counter()
+                while (signal.getsignal(signal.SIGTERM) is signal.SIG_DFL
+                       and not seen.get("main_done") and time.perf_counter() - t < BN_WAIT_S):
+                    time.sleep(0.01)
+                with main_lock:
+                    if not seen.get("main_done"):
+                        # to the main thread, which waits in cmd_bn: a signal
+                        # raised on this thread would not wake that wait
+                        seen["t_signal"] = time.perf_counter()
+                        signal.pthread_kill(threading.main_thread().ident, signal.SIGTERM)
+
+        datadir = os.path.join(tmp, "datadir")
+        argv = ["bn", "--spec", config_path, "--genesis-state", state_path,
+                "--datadir", datadir, "--bls-backend", "torch", "--hash-backend", "device",
+                "--zero-ports", "--static-peers", "%s:%d" % node_a.host.listen_addr]
+        http_api.serve, um.metrics_http_server = serve, metrics_server
+        bls.verify_signature_sets = capture("sets", saved[2])
+        bls.verify_signature_sets_async = capture("sets", saved[3])
+        engine.device_build_levels = capture("leaves", saved[4])
+        ev._device_altair_deltas = capture("epoch", saved[5])
+        helper = threading.Thread(target=drive_node, name="bn-helper", daemon=True)
+
+        def run_node():
+            seen["t_start"] = time.perf_counter()
+            helper.start()
+            try:
+                return cli.main(argv)
+            finally:
+                with main_lock:
+                    seen["main_done"] = True
+                    signal.signal(signal.SIGTERM, signal.SIG_DFL)
+                seen["shutdown_seconds"] = time.perf_counter() - seen.get("t_signal", 0.0)
+
+        try:
+            rc, node_s = drive("bn", (), run_node)
+        finally:
+            (http_api.serve, um.metrics_http_server,
+             bls.verify_signature_sets, bls.verify_signature_sets_async,
+             engine.device_build_levels, ev._device_altair_deltas) = saved
+            helper.join(BN_WAIT_S)
+            flight_recorder.RECORDER.configure(incident_dir=None)
+            at_runtime.clear()           # the node's scheduler published its retunes
+            for n in (node_a, node_b):
+                n.close()
+        if failure:
+            raise SystemExit(f"the bn phase's helper thread failed: {failure[0]!r}") from failure[0]
+        missing = [k for k in BN_PATH if launches["bn"][k] <= 0]
+        persisted = [rec for rec in list(lg.RECENT)
+                     if rec[3] == "chain persisted; store flushed and closed"]
+        report = doctor.fsck_datadir(datadir)
+        out["shutdown"] = {
+            "seconds": seen["shutdown_seconds"], "cli_rc": rc,
+            "checks": {"rc_0": rc == 0, "persisted_logged": len(persisted) == 1,
+                       "doctor_clean": report["ok"] and not report["problems"]
+                       and report["anchor"].get("complete") is True}}
+        prev = {}
+        by_step = {}
+        for step in ("started", "gossip", "block", "sync"):
+            by_step[step] = {k: v - prev.get(k, 0) for k, v in marks[step].items()
+                             if v != prev.get(k, 0)}
+            prev = marks[step]
+        emit({"phase": "bn", "nvidia_smi": smi, "validators": len(genesis.validators),
+              "argv": argv, "peers_build_seconds": peers_s, "path_seconds": node_s,
+              "node_start_to_http_seconds": seen.get("http_seconds"), **out,
+              "launches": {k: v for k, v in launches["bn"].items() if v},
+              "launches_by_step": by_step})
+        failed = {f"{part}.{name}" for part, o in out.items()
+                  for name, ok in o.get("checks", {}).items() if not ok}
+        if failed or missing:
+            raise SystemExit(f"the bn path failed {sorted(failed)}; kernels not launched: {missing}")
+    finally:
+        pool.terminate()
+        pool.join()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # each kernel of the path against its plain version at every bucket the
+    # phase's batches ran that no earlier phase held, and the ladder at
+    # every width the phase hashed
+    by_bucket = {}
+    for sets in captured["sets"]:
+        by_bucket.setdefault(be.padding_bucket(len(sets), max(len(x.signing_keys) for x in sets)),
+                             sets)
+    rows, where = {}, {}
+    for (n, m), sets in sorted(by_bucket.items()):
+        path = f"bn_{n}x{m}"
+        if (n, m) not in checked_buckets:
+            rows[path], _own, _args = check_kernels(path, sets)
+        where[f"{n}x{m}"] = checked_buckets.setdefault((n, m), path)
+    hash_rows, _hash_args = block_path_hash_rows("bn", captured)
+    emit({"phase": "bn_buckets", "checked_at": where})
+    return rows, hash_rows
 
 
 def main() -> int:
@@ -3220,9 +3655,15 @@ def run() -> int:
     t0 = time.perf_counter()
     processor_rows, processor_hash_rows, profiled_processor_import = beacon_processor_phase(
         drive, launches, check_kernels, checked_buckets, smi, block_fx, handoff)
+    beacon_processor_s = time.perf_counter() - t0
+    # the beacon node through its CLI entry point, with its p2p stack, HTTP
+    # API and two peers, on the same registry
+    t0 = time.perf_counter()
+    bn_rows, bn_hash_rows = bn_phase(drive, launches, check_kernels, checked_buckets, smi,
+                                     block_fx)
     emit({"phase": "block_phases_seconds", "ef_state": ef_state_s,
           "block_mainnet": block_mainnet_s, "beacon_chain": beacon_chain_s,
-          "beacon_processor": time.perf_counter() - t0})
+          "beacon_processor": beacon_processor_s, "bn": time.perf_counter() - t0})
 
     # the kernel line: the gossip path's numbers (the MSM kernels': the KZG
     # path's; the tree-hash and epoch kernels': their paths'), then each
@@ -3253,6 +3694,11 @@ def run() -> int:
                 table[name][path] = rows[name]
         if name in processor_hash_rows:
             table[name]["beacon_processor"] = processor_hash_rows[name]
+        for path, rows in bn_rows.items():
+            if name in rows:
+                table[name][path] = rows[name]
+        if name in bn_hash_rows:
+            table[name]["bn"] = bn_hash_rows[name]
 
     # each kernel's device ms from the profiler (prepare's three launches
     # apart) on the stage data of each bucket, beside the CUDA-event ms of

@@ -319,46 +319,59 @@ def warmup_buckets() -> tuple:
     return plan.warmup_buckets if plan is not None else DEFAULT_WARMUP_BUCKETS
 
 
-def start_warmup(buckets=None, warm_fn=None) -> threading.Thread:
+def start_warmup(buckets=None, warm_fn=None,
+                 supervisor=None) -> threading.Thread:
     """Warm the warmup buckets in a background daemon thread.
 
-    On the hybrid backend the buckets warm through
+    Called from node bring-up (cli.cmd_bn) when a device-backed BLS
+    backend is selected. On the hybrid backend the buckets warm through
     `HybridBackend.warm_bucket` — a full-pipeline dummy verify that also
     marks the bucket warm for ROUTING (its own probe bounds the device
     wait); on the plain torch backend they warm through the torch
     backend's `warm_stages` (which builds or loads the kernel library and
     runs one dummy verify at the bucket on the card — safe to block HERE,
     it is a daemon thread). `warm_fn(n_sets, n_pks)` replaces both (tests).
-    Times land in the profiler either way. Any failure degrades to
-    first-use cost on the first dispatch, never to a crashed process."""
+    Times land in the profiler either way. With a `supervisor`
+    (utils/supervisor.py) a failed attempt is retried with backoff; without
+    one any failure degrades to first-use cost on the first dispatch,
+    never to a crashed process."""
     log = get_logger("autotune")
     plan_buckets = tuple(buckets) if buckets is not None else warmup_buckets()
 
+    def attempt():
+        # raises on failure — the CALLER owns the retry policy (see below)
+        if warm_fn is not None:
+            fn = warm_fn
+        else:
+            from ..crypto.bls import api as bls_api
+
+            backend = bls_api.get_backend()
+            if hasattr(backend, "warm_bucket"):
+                fn = backend.warm_bucket
+            else:
+                from ..crypto.torchbls.backend import warm_stages as fn
+        import time as _time
+
+        for n_sets, n_pks in plan_buckets:
+            t0 = _time.time()
+            ok = fn(n_sets, n_pks)
+            if ok is False:  # warm_bucket: device down/failed (None =
+                log.warn(    # warm_stages, which raises on failure)
+                    "warmup bucket skipped (device unavailable or "
+                    "warm failed)", n_sets=n_sets, n_pks=n_pks,
+                )
+            else:
+                log.info("warmup bucket done", n_sets=n_sets,
+                         n_pks=n_pks, secs=round(_time.time() - t0, 1))
+
+    if supervisor is not None:
+        # node bring-up path: a warmup crash retries with backoff instead
+        # of degrading straight to first-use cost (utils/supervisor.py)
+        return supervisor.spawn(attempt, "autotune_warmup")
+
     def run():
         try:
-            if warm_fn is not None:
-                fn = warm_fn
-            else:
-                from ..crypto.bls import api as bls_api
-
-                backend = bls_api.get_backend()
-                if hasattr(backend, "warm_bucket"):
-                    fn = backend.warm_bucket
-                else:
-                    from ..crypto.torchbls.backend import warm_stages as fn
-            import time as _time
-
-            for n_sets, n_pks in plan_buckets:
-                t0 = _time.time()
-                ok = fn(n_sets, n_pks)
-                if ok is False:  # warm_bucket: device down/failed (None =
-                    log.warn(    # warm_stages, which raises on failure)
-                        "warmup bucket skipped (device unavailable or "
-                        "warm failed)", n_sets=n_sets, n_pks=n_pks,
-                    )
-                else:
-                    log.info("warmup bucket done", n_sets=n_sets,
-                             n_pks=n_pks, secs=round(_time.time() - t0, 1))
+            attempt()
         except Exception as e:
             log.warn("startup warmup abandoned (first dispatches will "
                      "pay the first-use cost)",

@@ -1,6 +1,6 @@
 """Observability of the port: span tracing, the flight recorder, the SLO
 accountant, the device ledger, per-stage device attribution, program
-analytics and the pipeline snapshot (copies of the JAX package's modules of the same names).
+analytics, the pipeline snapshot and cross-node propagation (copies of the JAX package's modules of the same names).
 
   - `trace`: a lightweight span tracer. A Trace carries one work unit
     through the pipeline; completed traces land in a bounded ring and
@@ -27,6 +27,10 @@ analytics and the pipeline snapshot (copies of the JAX package's modules of the 
     registered BeaconProcessor's live state, recent traces) and
     `run_probe`, which pushes a small batch through a real BeaconProcessor
     to the active BLS backend.
+  - `propagation`: cross-node causality — the wire trace context every
+    gossip publish and Req/Resp request carries, per-node propagation SLIs
+    (`net_propagation_seconds{topic}`, time-to-head) and the
+    propagation-stall incident trigger.
 
 Always-on by design: recording a trace is appending a few floats to a
 deque. Nothing here initializes a device.
@@ -43,6 +47,7 @@ from .trace import (  # noqa: F401
 )
 from .pipeline import register_processor, snapshot  # noqa: F401
 from . import device, device_ledger, flight_recorder, perf, slo  # noqa: F401  (registers their families + the log sink)
+from . import propagation  # noqa: F401  (registers the net_* families)
 from .device_ledger import LEDGER  # noqa: F401
 from .flight_recorder import RECORDER  # noqa: F401
 from .slo import ACCOUNTANT  # noqa: F401

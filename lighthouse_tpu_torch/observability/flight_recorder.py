@@ -368,6 +368,18 @@ class FlightRecorder:
          "component", "msg"}
     )
 
+    def note_supervisor_restart(self, service: str, attempt: int,
+                                error: str) -> None:
+        self.record("supervisor_restart", severity="warn",
+                    service=service, attempt=attempt, error=error)
+
+    #: event keys log fields must not shadow (a `log.warn(..., kind=...)`
+    #: field would otherwise collide with record()'s own kwargs)
+    _RESERVED_EVENT_KEYS = frozenset(
+        {"ts", "t_mono", "kind", "severity", "slot", "trace_id",
+         "component", "msg"}
+    )
+
     def _on_log_record(self, ts, level, component, msg, fields) -> None:
         """utils/logging observer: every WARN+ record becomes an event."""
         safe = {

@@ -24,6 +24,7 @@ and one histogram observe per span. Timestamps are time.perf_counter()
 
 from __future__ import annotations
 
+import hashlib
 import itertools
 import json
 import os
@@ -63,10 +64,16 @@ TRACES_TOTAL = REGISTRY.counter_vec(
 _next_trace_id = itertools.count(1)
 
 
+def next_trace_id() -> int:
+    """Allocate one id from the process-wide trace-id sequence (publish
+    contexts built outside any Trace still need a unique causal key)."""
+    return next(_next_trace_id)
+
+
 class Trace:
     """One work unit's spans. Append-only; finished via Tracer.finish."""
 
-    __slots__ = ("kind", "n_items", "t0", "spans", "meta", "trace_id")
+    __slots__ = ("kind", "n_items", "t0", "spans", "meta", "trace_id", "ctx")
 
     def __init__(self, kind: str, n_items: int = 1):
         self.kind = kind
@@ -75,9 +82,25 @@ class Trace:
         self.trace_id = next(_next_trace_id)
         self.spans: list = []        # (name, t0, t1, args|None)
         self.meta: dict = {}
+        # wire-propagated origin context (observability/propagation.py):
+        # set on the producer side at publish and ADOPTED on every
+        # consumer, so a block's publish span and its remote
+        # validate/import spans share one causal id — the merged Perfetto
+        # export links them with flow events keyed on it
+        self.ctx = None
 
     def add_span(self, name: str, t0: float, t1: float, **args) -> None:
         self.spans.append((name, t0, t1, args or None))
+
+    def adopt(self, ctx) -> None:
+        """Adopt a WireTraceContext into this trace (cross-node causal
+        join): the context becomes the trace's flow key and its origin
+        fields land in the exported span args."""
+        self.ctx = ctx
+        self.meta.update(
+            causal=ctx.causal_id(), origin=ctx.origin,
+            origin_slot=ctx.slot, origin_seq=ctx.seq,
+        )
 
     def annotate(self, **kv) -> None:
         """Attach key/values to the whole trace (bucket, bytes, ...)."""
@@ -89,6 +112,23 @@ class Trace:
         return max(t1 for _, _, t1, _ in self.spans) - min(
             t0 for _, t0, _, _ in self.spans
         )
+
+
+# wire-context thread-local (set by the transport's CREQ serve path):
+# traces begun on a thread with a bound wire context auto-adopt it, so a
+# served request's spans join the caller's causal chain without plumbing
+# a context argument through every handler signature
+_wire_tls = threading.local()
+
+
+def set_current_wire_ctx(ctx) -> None:
+    """Bind the wire context of the request being served to this thread
+    (transport `Connection._serve`); `Tracer.begin` adopts it."""
+    _wire_tls.ctx = ctx
+
+
+def current_wire_ctx():
+    return getattr(_wire_tls, "ctx", None)
 
 
 class Tracer:
@@ -114,7 +154,11 @@ class Tracer:
         self.device_timeline_source = None
 
     def begin(self, kind: str, n_items: int = 1) -> Trace:
-        return Trace(kind, n_items)
+        tr = Trace(kind, n_items)
+        ctx = current_wire_ctx()
+        if ctx is not None:
+            tr.adopt(ctx)
+        return tr
 
     def finish(self, trace: Trace | None) -> None:
         if trace is None:
@@ -173,7 +217,9 @@ class Tracer:
 #: (host pipeline lanes recycle tid 0..HOST_LANES-1)
 DEVICE_LANE_BASE = 1000
 
-#: host pipeline lane count; tids recycle mod this
+#: host pipeline lane count; tids recycle mod this. ONE owner — both the
+#: span export and the flow-link synthesis derive a trace's lane from it,
+#: and a divergence would detach every flow arrow from its slice
 HOST_LANES = 32
 
 
@@ -182,6 +228,11 @@ def _host_tid(trace_index: int) -> int:
 
 #: flight-recorder instant events render on this dedicated lane
 INSTANT_LANE = 900
+
+#: trace kinds that ANCHOR a cross-node flow (the producer end of the
+#: arrow): gossip publishes and HTTP client requests; everything else
+#: carrying a wire context is a consumer (`http_serve`, imports, ...)
+_FLOW_ANCHOR_KINDS = ("gossip_publish", "http_client")
 
 #: the device ledger's per-workload occupancy/waiting tracks render on
 #: dedicated lanes starting here (one tid per track, deterministically
@@ -248,7 +299,12 @@ def chrome_trace_events(
     deterministic track order). Timestamps are rebased
     so the oldest event is t=0 (`base` overrides the rebase origin so the
     cluster merge can put N tracers on one shared axis; `pid` overrides
-    the process id so each node renders as its own process group)."""
+    the process id so each node renders as its own process group).
+
+    Cross-node flow events are NOT emitted here — they need the whole
+    cluster's traces at once (one distinct s/f pair per consumer, or the
+    trace-event flow model chains sibling importers into false causality);
+    `merge_chrome_traces` synthesizes them."""
     counters = counters or []
     instants = instants or []
     device_timeline = device_timeline or []
@@ -343,14 +399,73 @@ def chrome_trace_events(
     return events
 
 
+def _flow_links(snaps, base: float) -> list[dict]:
+    """Cross-node flow pairs for the cluster merge: ONE distinct (s, f)
+    id per (publish, consumer trace). The trace-event flow model treats
+    same-id events as a single sequential chain, so a fan-out publish with
+    three importers keyed on one id would render import1 -> import2 —
+    false causality between siblings; per-consumer ids give the documented
+    publish -> each-import arrows. Consumers whose context has no publish
+    anchor in the merged set (e.g. an rpc_serve adopting a non-publish
+    caller context) emit nothing."""
+    from .propagation import flow_id
+
+    # pass 1: producer anchors — fid -> (pid, tid, mid-span time). Gossip
+    # publishes and HTTP client requests both originate causal chains;
+    # a gossip publish wins when both carry the same context (the HTTP
+    # call is then itself a consumer of the publish's chain).
+    anchors: dict = {}
+    for i, (_name, traces, _c) in enumerate(snaps):
+        for j, tr in enumerate(traces):
+            if (tr.kind in _FLOW_ANCHOR_KINDS and tr.ctx is not None
+                    and tr.spans):
+                fid = flow_id(tr.ctx)
+                if tr.kind != "gossip_publish" and fid in anchors:
+                    continue
+                first = tr.spans[0]
+                anchors[fid] = (
+                    i + 1, _host_tid(j), (first[1] + first[2]) / 2.0
+                )
+    # pass 2: one unique flow per consumer trace with a matching anchor
+    events: list[dict] = []
+    for i, (_name, traces, _c) in enumerate(snaps):
+        pid = i + 1
+        for j, tr in enumerate(traces):
+            if (tr.ctx is None or tr.kind in _FLOW_ANCHOR_KINDS
+                    or not tr.spans):
+                continue
+            fid = flow_id(tr.ctx)
+            anchor = anchors.get(fid)
+            if anchor is None:
+                continue
+            # digest-derived per-consumer id (NOT an arithmetic pack of
+            # pid/index — wrapped indices or >31 pids would collide and
+            # re-chain sibling flows)
+            uid = int.from_bytes(
+                hashlib.sha256(f"{fid}:{pid}:{j}".encode()).digest()[:6],
+                "big",
+            )
+            apid, atid, ats = anchor
+            events.append({
+                "name": "propagation", "cat": "net", "ph": "s", "id": uid,
+                "ts": (ats - base) * 1e6, "pid": apid, "tid": atid,
+            })
+            first = tr.spans[0]
+            events.append({
+                "name": "propagation", "cat": "net", "ph": "f", "bp": "e",
+                "id": uid, "ts": (first[1] - base) * 1e6,
+                "pid": pid, "tid": _host_tid(j),
+            })
+    return events
+
+
 def merge_chrome_traces(named_tracers, path: str, instants=None,
                         device_timeline="auto") -> int:
     """Merge N nodes' tracers into ONE Chrome-trace file: each node is a
     distinct process group (pid = position + 1, named via process_name
-    metadata), every timestamp rebased against one shared origin. (The
-    reference's cross-node flow links between a publish span and the
-    remote spans that adopted its wire context come with its propagation
-    layer, which the port has not.) `named_tracers` is an iterable of
+    metadata), every timestamp rebased against one shared origin, and
+    cross-node flow events link each publish span to the remote import
+    spans that adopted its wire context. `named_tracers` is an iterable of
     (name, Tracer); `instants` — (t_mono, name, args) markers (the flight
     recorder's `perfetto_instants()`, which is process-global and so
     cluster-wide in an in-process harness) render as a dedicated
@@ -421,6 +536,7 @@ def merge_chrome_traces(named_tracers, path: str, instants=None,
         events.extend(
             _device_timeline_events(device_timeline, dl_pid, base)
         )
+    events.extend(_flow_links(snaps, base))
     doc = {
         "traceEvents": events,
         "displayTimeUnit": "ms",

@@ -297,6 +297,18 @@ def test_import_and_cpu_verify_load_no_jax():
         "rep = state_root.run_state_root_scenario(scenarios.get_state_root_scenario(\n"
         "    'state_root', n_validators=64, slots=2))\n"
         "assert rep['conservation']['ok'] and rep['roots'] == 3, rep\n"
+        "from lighthouse_tpu_torch.types import network_config\n"
+        "from lighthouse_tpu_torch.utils import monitoring, supervisor, yaml_lite\n"
+        "from lighthouse_tpu_torch.observability import propagation\n"
+        "from lighthouse_tpu_torch.network import (discovery, gossipsub, node, peer_manager,\n"
+        "    peer_score, rpc, sync, transport)\n"
+        "from lighthouse_tpu_torch.validator import beacon_node\n"
+        "from lighthouse_tpu_torch.api import client, http_api, rewards\n"
+        "from lighthouse_tpu_torch.chain import light_client\n"
+        "from lighthouse_tpu_torch.slasher import service\n"
+        "main = network_config.get_network_config('mainnet')\n"
+        "assert network_config.config_from_yaml(network_config.config_to_yaml(main)).preset == main.preset\n"
+        "assert cli.build_parser().parse_args(['bn']).fn is cli.cmd_bn\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'lighthouse_tpu.'))"
         " or m == 'lighthouse_tpu']\n"
         "assert not bad, bad\n"
